@@ -12,7 +12,9 @@
    (bench.py's synthetic field, built on the card), 1920x1080, 1024
    planes, macrocell skipping on, in diffuse, none and shadow shading;
    checks each frame, counts kernel launches, and times frames and the
-   kernel alone with CUDA events;
+   kernel alone with CUDA events; then holds the kernel against its plain
+   version on each headline frame's own inputs, cut to a band of 64 fan
+   rows with all 2048 columns, and times both there;
 5. prints one JSON line of kernel measurements, then, last, the device
    line {"ok": true, "device": {...}}.
 
@@ -29,17 +31,42 @@ import subprocess
 import sys
 import time
 
-# Operations per sample of the kernel's arithmetic (csrc/swslice.cu),
-# counted by hand from its source: the 8-tap sample with coordinates
-# (~42), the transfer-function lookup (~21), opacity correction with
-# expf/log1pf (~16) and compositing (~11) make mode 0; modes 1/2 add the
-# gradient (~10, plus ~13 for the FD halo's share of extra samples),
-# normal, shading and camera-space normal (~57), and 4 more channels
-# composited (~8); mode 2 adds the shadow lattice read (~30).
-OPS_PER_SAMPLE = {0: 90, 1: 178, 2: 208}
+# f32 operations per sample that the slice function needs, counted from
+# csrc/swslice.cu (add, mul, div, compare/select, min/max, abs, floor and
+# each of expf/log1pf/rsqrtf count one; a clamp two). Work shared by a
+# whole fan row, column or plane (tap positions and weights, the plane's
+# depth, the lattice coordinates) and the kernel's own overheads (the FD
+# halo samples it recomputes, the skip test, the termination test) are
+# left out.
+#   sample: 4 z-lerps (3 each) + 2 row lerps (3) + column lerp (3)    21
+#   classify: normalize (4), table index (5), 4 channel lerps (13),
+#             rgb clamp (6)                                          28
+#   opacity: overlap (6), 1-(1-a)^kk with expf/log1pf (10), the
+#            nearly-equal branch (3), dt_w > 0 (1)                   20
+#   composite r, g, b, depth, transmittance                          12
+# mode 0 = 81. Modes 1/2 add the gradient (FD 7, analytic 12), the axial
+# term and normal (18), the primary light (7) and 10 per extra light,
+# the shade (10), the camera-space normal (24) and compositing three
+# more channels (6); mode 2 adds the z-lerped bilinear lattice read (21)
+# and the shadow factor (4).
+OPS_SAMPLE, OPS_COMPOSITE = 21 + 28 + 20, 12
+OPS_GRAD = {True: 7, False: 12}
+OPS_SHADE, OPS_LIGHT, OPS_SHADOW = 18 + 7 + 10 + 24 + 6, 10, 21 + 4
+
+
+def ops_per_sample(mode, fd, n_extra):
+    ops = OPS_SAMPLE + OPS_COMPOSITE
+    if mode >= 1:
+        ops += OPS_GRAD[fd] + OPS_SHADE + OPS_LIGHT * n_extra
+    if mode == 2:
+        ops += OPS_SHADOW
+    return ops
+
+
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 FRAMES, WARMUP = 10, 3  # timed and warm-up frames per headline shading
+BAND_ROWS = 64  # headline fan rows held against the plain version
 
 
 def log(*a):
@@ -120,6 +147,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def compare(out, ref, term):
+    """Largest kernel-vs-plain differences (rgb/normals, alpha, depth) and
+    whether they are within the stated tolerances."""
+    tol_c, tol_d = (5e-4, 5e-4) if term else (1e-4, 5e-4)
+    err_c = float((out[0:6] - ref[0:6]).abs().max())
+    err_a = float((out[7] - ref[7]).abs().max())
+    err_d = float((out[6] - ref[6]).abs().max())
+    ok = err_c <= tol_c and err_a <= tol_c and err_d <= tol_d
+    return err_c, err_a, err_d, ok
+
+
 def build_kernel():
     from ovr_tpu_torch.ops import cuda_build
     built = cuda_build.load("swslice")
@@ -164,7 +202,6 @@ def parity(grids):
          0),
     ]
     worst = 0.0
-    plain_ms = None
     for (n, dt, kind, shading, fd, skip, term, cam, w, h, nl) in cases:
         grid = grids[(n, dt, "sparse" if kind == "sparse" else "bench")]
         scene = make_scene(grid, kind, cam, nl)
@@ -174,9 +211,6 @@ def parity(grids):
             sw_term=term).resolved(scene)
         cfg = dataclasses.replace(cfg, sw=dataclasses.replace(
             cfg.sw, fd_grad=fd))
-        if not cfg.sw.pallas:
-            raise SystemExit("the plan does not route the slice loop to "
-                             "the kernel")
         mc = (accel.build_macrocells(grid, scene.tfn.alpha,
                                      scene.tfn.value_range) if skip else None)
         args, kw = capture(scene, cfg, macrocells=mc)
@@ -186,11 +220,7 @@ def parity(grids):
         if swslice.LAUNCHES != n0 + 1:
             raise SystemExit("slice_composite did not launch the kernel")
         ref = swslice.slice_composite_plain(*args, **kw)
-        tol_c, tol_d = (5e-4, 5e-4) if term else (1e-4, 5e-4)
-        err_c = float((out[0:6] - ref[0:6]).abs().max())
-        err_a = float((out[7] - ref[7]).abs().max())
-        err_d = float((out[6] - ref[6]).abs().max())
-        ok = err_c <= tol_c and err_a <= tol_c and err_d <= tol_d
+        err_c, err_a, err_d, ok = compare(out, ref, term)
         worst = max(worst, err_c, err_a, err_d)
         alpha_max = float(ref[7].max())
         log(f"parity {n}^3 {dt:4s} {kind:6s} {shading:7s} fd={fd:d} "
@@ -201,41 +231,36 @@ def parity(grids):
             raise SystemExit(f"kernel disagrees with the plain version "
                              f"(or nothing in view) in case {n}^3 {dt} "
                              f"{kind} {shading}")
-        if n == 1024 and shading == "diffuse":
-            plain_ms = cuda_ms(lambda: swslice.slice_composite_plain(
-                *args, **kw), 1)
-            kern_ms = cuda_ms(lambda: swslice.slice_composite(*args, **kw),
-                              5)
-            log(f"  1024^3 240x135 diffuse: plain {plain_ms:.1f} ms, "
-                f"kernel {kern_ms:.3f} ms (fan {args[4].shape[0]}x"
-                f"{args[3].shape[0]}, {args[6]} planes)")
-    return worst, plain_ms
+    return worst
 
 
 def bound(args, kw, planes):
-    """Least time for the kernel's work on these inputs: each input byte
-    read once and the output written once at the HBM rate, against the
-    operations of the samples this run composited at the f32 rate."""
+    """Least time for the slice function on these inputs: each input read
+    once and the output written once at the HBM rate, against the
+    operations of the samples this run needs at the f32 rate. The samples
+    are those of the planes each block composited (skipping and
+    termination as the function defines them), plus, with the FD
+    gradient, the two halo rows beyond the fan's first and last row."""
+    import torch
     from ovr_tpu_torch.ops import swslice
     grid, _, _, pg, qg = args[:5]
     hi, wi = qg.shape[0], pg.shape[0]
-    nbc = -(-wi // swslice.BLOCK_COLS)
-    rows = [min(swslice.BLOCK_ROWS, hi - r * swslice.BLOCK_ROWS)
-            for r in range(-(-hi // swslice.BLOCK_ROWS))]
-    cols = [min(swslice.BLOCK_COLS, wi - c * swslice.BLOCK_COLS)
-            for c in range(nbc)]
-    p = planes.view(len(rows), nbc).double().cpu()
-    import torch
-    px = torch.tensor(rows, dtype=torch.float64)[:, None] * torch.tensor(
-        cols, dtype=torch.float64)[None, :]
-    samples = float((p * px).sum())
-    nbytes = grid.numel() * grid.element_size() + 8 * hi * wi * 4
-    if kw.get("lgrid") is not None:
-        nbytes += kw["lgrid"].numel() * 4
+    nbr, nbc = -(-hi // swslice.BLOCK_ROWS), -(-wi // swslice.BLOCK_COLS)
+    rows = torch.tensor([min(swslice.BLOCK_ROWS, hi - r * swslice.BLOCK_ROWS)
+                         for r in range(nbr)], dtype=torch.float64)
+    cols = torch.tensor([min(swslice.BLOCK_COLS, wi - c * swslice.BLOCK_COLS)
+                         for c in range(nbc)], dtype=torch.float64)
+    p = planes.view(nbr, nbc).double().cpu()
+    samples = float((p * rows[:, None] * cols[None, :]).sum())
+    if kw["mode"] >= 1 and kw["fd"]:
+        samples += float((p[0] * cols).sum() + (p[-1] * cols).sum())
+    inputs = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in inputs) + 8 * hi * wi * 4
+    ops = ops_per_sample(kw["mode"], kw["fd"], kw.get("n_extra", 0))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = samples * OPS_PER_SAMPLE[kw["mode"]] / H100_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), samples, nbytes
+    t_ops = samples * ops / H100_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", samples, nbytes, ops)
 
 
 def breakdown(scene, cfg, mc):
@@ -286,7 +311,7 @@ def main_path(grid, card):
             width=width, height=height, spp=1, sampling_rate=1024.0,
             shading=shading, method="auto", fast_math=True,
             use_macrocells=True).resolved(scene)
-        if cfg.sw is None or not cfg.sw.pallas:
+        if cfg.sw is None:
             raise SystemExit(f"{shading}: the headline does not take the "
                              "kernel's shear-warp path")
         lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
@@ -317,8 +342,8 @@ def main_path(grid, card):
     launches = swslice.LAUNCHES
     breakdown(scene, results["diffuse"]["cfg"], mc)
 
-    # the kernel alone, on the inputs of each headline frame (these
-    # launches are not the main path's)
+    # the kernel alone, and against its plain version, on the inputs of
+    # each headline frame (these launches are not the main path's)
     for shading, r in results.items():
         args, kw = capture(scene, r["cfg"], macrocells=mc,
                            light_grid=r["lg"])
@@ -326,23 +351,57 @@ def main_path(grid, card):
         planes = torch.zeros(-(-hi // swslice.BLOCK_ROWS)
                              * -(-wi // swslice.BLOCK_COLS),
                              dtype=torch.int32, device=grid.device)
-        swslice.slice_composite(*args, **dict(kw, block_planes=planes))
+        full = swslice.slice_composite(*args, **dict(kw, block_planes=planes))
         r["kernel_ms"] = cuda_ms(
             lambda: swslice.slice_composite(*args, **kw), 5)
-        r["bound_ms"], r["bound_by"], r["samples"], r["bytes"] = bound(
-            args, kw, planes)
+        (r["bound_ms"], r["bound_by"], r["samples"], r["bytes"],
+         r["ops_per_sample"]) = bound(args, kw, planes)
         r["fan"] = (hi, wi)
         r["planes"] = args[6]
+        band_check(shading, r, args, kw, full)
         mrays = width * height / (r["frame_ms"] * 1e-3) / 1e6
         log(f"headline {shading:7s} 1920x1080 1024^3 bf16: frame "
             f"{r['frame_ms']:.2f} ms ({mrays:.2f} Mrays/s), kernel "
             f"{r['kernel_ms']:.2f} ms, bound {r['bound_ms']:.2f} ms "
-            f"({r['bound_by']}; {r['samples']:.3e} samples composited of "
-            f"{hi * wi * args[6]:.3e}), peak memory "
-            f"{r['peak_bytes'] / 2**30:.2f} GiB, fan {hi}x{wi}, "
+            f"({r['bound_by']}; {r['samples']:.3e} samples needed of "
+            f"{hi * wi * args[6]:.3e}, {r['ops_per_sample']} ops each), "
+            f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB, fan {hi}x{wi}, "
             f"{args[6]} planes, mean alpha {r['alpha_mean']:.3f}; {card}")
         r["mrays_s"] = mrays
     return results, launches
+
+
+def band_check(shading, r, args, kw, full):
+    """The kernel against its plain version on the headline frame's own
+    inputs, cut to a band of BAND_ROWS fan rows (all columns) that starts
+    on a block boundary in the middle of the fan; times both there."""
+    import torch
+    from ovr_tpu_torch.ops import swslice
+    hi = args[4].shape[0]
+    r0 = (hi // 2 - BAND_ROWS // 2) // swslice.BLOCK_ROWS * swslice.BLOCK_ROWS
+    band = list(args)
+    band[4] = args[4][r0:r0 + BAND_ROWS]
+    out = swslice.slice_composite(*band, **kw)
+    ref = swslice.slice_composite_plain(*band, **kw)
+    err_c, err_a, err_d, ok = compare(out, ref, kw["term"])
+    alpha_max = float(ref[7].max())
+    r["band"] = f"fan rows {r0}-{r0 + BAND_ROWS - 1} of {hi}, all columns"
+    r["band_err"] = max(err_c, err_a, err_d)
+    r["band_plain_ms"] = cuda_ms(
+        lambda: swslice.slice_composite_plain(*band, **kw), 1)
+    r["band_kernel_ms"] = cuda_ms(
+        lambda: swslice.slice_composite(*band, **kw), 5)
+    # the band's FD rows lie on its own row lattice, so it matches the
+    # full frame's rows closely but not bit for bit
+    vs_full = float((out - full[:, r0:r0 + BAND_ROWS]).abs().max())
+    log(f"parity headline {shading:7s} {r['band']}: rgb/n {err_c:.2e} "
+        f"alpha {err_a:.2e} depth {err_d:.2e} (max alpha {alpha_max:.3f}; "
+        f"{vs_full:.2e} from the full frame's rows); plain "
+        f"{r['band_plain_ms']:.1f} ms, kernel {r['band_kernel_ms']:.3f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or alpha_max < 0.05 or not torch.isfinite(out).all():
+        raise SystemExit("kernel disagrees with the plain version on the "
+                         "headline frame's inputs")
 
 
 def main() -> int:
@@ -383,7 +442,7 @@ def main() -> int:
                     grids[(n, dt, kind_f)] = torch.clamp(
                         torch.round(g * 255), 0, 255).to(torch.uint8)
             del g
-    worst, plain_ms = parity(grids)
+    worst = parity(grids)
     log(f"parity: all cases agree, largest difference {worst:.2e} "
         f"({time.perf_counter() - t0:.0f} s so far)")
 
@@ -391,6 +450,7 @@ def main() -> int:
     if launches < 1:
         raise SystemExit("the main path never launched the slice kernel")
     head = results["diffuse"]
+    worst = max([worst] + [r["band_err"] for r in results.values()])
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     entry = {
         "name": "swslice",
@@ -401,14 +461,17 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": worst,
         "ms": head["kernel_ms"],
-        "plain_ms": plain_ms,
-        "plain_shape": "1024^3 bf16, 240x135 screen (fan 168x304), diffuse",
+        "plain_ms": head["band_plain_ms"],
+        "plain_shape": f"headline diffuse inputs, {head['band']}",
+        "kernel_ms_at_plain_shape": head["band_kernel_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": "1024^3 bf16, 1920x1080, 1024 planes, diffuse",
         "modes": {s: {k: r[k] for k in ("kernel_ms", "frame_ms", "mrays_s",
                                          "bound_ms", "bound_by", "samples",
+                                         "ops_per_sample", "band_plain_ms",
+                                         "band_kernel_ms", "band_err",
                                          "peak_bytes")}
                   for s, r in results.items()},
         "card": smi,

@@ -31,9 +31,12 @@ _LATER = "a later slice of ROADMAP Queue 1"
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static render settings; the same fields and defaults as
+    """Static render settings; the fields and defaults of
     `ovr_tpu.api.RenderConfig`. `sw_persist` and `sw_col_win` chose TPU
-    kernel variants with identical results and change nothing here."""
+    kernel variants with identical results and change nothing here.
+    `ovr_tpu`'s `sw_pallas` (the Pallas kernel or the XLA slice loop) has
+    no counterpart: the slice loop is the kernel on the card and its plain
+    version on the CPU."""
 
     width: int = 512
     height: int = 512
@@ -45,7 +48,6 @@ class RenderConfig:
     sw_slice_align: int = 1  # round the slice count up to a multiple
     sw_bf16: bool = False
     sw_col_win: bool = False
-    sw_pallas: bool = True  # fused slice kernel (on CUDA tensors)
     sw_term: bool = True  # early ray termination in the kernel
     sw_skip: bool = True  # macrocell plane skipping in the kernel
     sw_persist: bool = True
@@ -152,6 +154,10 @@ def _unsupported(scene: Scene, cfg: RenderConfig, last_camera):
         return f"volume instances arrive with {_LATER} (render/multivol.py)"
     if any(lt.kind == "point" for lt in scene.lights):
         return f"point lights arrive with {_SHADING_EXTRAS}"
+    n_dir = sum(lt.kind in ("directional", "sunsky") for lt in scene.lights)
+    if n_dir > 4 and cfg.shading != ig.SHADING_NONE:
+        return (f"{n_dir} extra directional lights: the slice kernel has "
+                f"slots for 4; more arrive with {_SHADING_EXTRAS}")
     if cfg.jitter_rays:
         return f"jitter_rays arrives with {_SHADING_EXTRAS}"
     if last_camera is not None:

@@ -36,13 +36,14 @@
 // has T > 1e-4 with its box exit still ahead (__syncthreads_or).
 //
 // What bounds it on an H100: arithmetic. At the headline frame (1024^3
-// bf16 volume, 1024 planes, 1352 x 2048 fan) the kernel must read the
+// bf16 volume, 1024 planes, 1352 x 2048 fan) the function must read the
 // 2.15 GB grid once and write an 88.6 MB result, about 0.67 ms at
-// 3.35 TB/s, while it does some 90 (mode 0) to 210 (mode 2) f32
-// operations per sample on 2.84e9 samples, 4 to 9 ms at 67 TFLOP/s.
-// This first version spends most of its time on the per-sample 8-tap
-// loads through L1 and the halo recomputation; slab windows in shared
-// memory (TMA) are the next step.
+// 3.35 TB/s, and needs 81 (mode 0) to 178 (mode 2, FD gradient) f32
+// operations per sample (itemised in chip_smoke.py) on the 5.7e8 of the
+// fan's 2.84e9 samples that skipping and termination leave, 0.69 to
+// 1.51 ms at 67 TFLOP/s. This first version spends most of its time on
+// the per-sample 8-tap loads through L1 and the FD halo it recomputes;
+// slab windows in shared memory (TMA) are the next step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -8,13 +8,9 @@ fan pixel the covered world interval of each plane comes from the exact
 ray/box slab test, so the result is the box-clipped Riemann sum of the
 emission-absorption integral with samples at plane centers.
 
-The slice loop runs in one of two forms with the same math:
-- the fused kernel (`ops.swslice.slice_composite`), when the plan's
-  `pallas` flag is set, which `resolve_static` does for volumes on a CUDA
-  device. On CPU tensors that call runs the kernel's plain version;
-- the plain loops here (`_slices_xla_shaded` and the unshaded step
-  `_slices_xla_none`), which resample with dense interpolation matrices
-  as the JAX package's XLA path does.
+The slice loop is one call of `ops.swslice.slice_composite`: the CUDA
+kernel for a volume on the card, its plain PyTorch version for one on the
+CPU.
 
 The plan keeps the fields of `ovr_tpu`'s `SwStatic` that change results;
 the TPU's VMEM tiling fields have no counterpart here (README, "TPU knobs
@@ -29,14 +25,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ovr_tpu_torch.core.sampling import (intersect_box, normalize_value,
-                                         opacity_correction, safe_normalize,
-                                         storage_scale)
+from ovr_tpu_torch.core.sampling import safe_normalize
 from ovr_tpu_torch.core.scene import ORTHOGRAPHIC
 from ovr_tpu_torch.ops import swslice
 from ovr_tpu_torch.render.camera import camera_basis
-
-A_MAX = 1.0 - 1e-6  # keep 1 - a invertible in fp32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +47,6 @@ class SwStatic:
     # rows per weight chunk of the TPU's batched warp matmuls; the
     # two-tap gather warp here builds no weight tensor and needs none
     row_chunk: int = 16
-    pallas: bool = False  # run the slice loop through ops.swslice
     term: bool = True  # early ray termination in the fused kernel
     # shading gradient: fan-space finite differences (True) or the
     # analytic bilinear derivative (False)
@@ -92,12 +83,6 @@ def resolve_static(scene, camera, cfg) -> Optional[SwStatic]:
         return None
     if min(vol.grid.shape) < 2 or scene.instances:
         return None
-    n_xdir = sum(1 for lt in scene.lights
-                 if lt.kind in ("directional", "sunsky"))
-    n_xpt = sum(1 for lt in scene.lights if lt.kind == "point")
-    # the kernel's scalar slots hold <= 4 extra directional lights
-    kernel_lights_ok = (cfg.shading == "none"
-                        or (n_xdir <= 4 and n_xpt == 0))
     if cfg.shading == "shadow" and not cfg.shadow_grid:
         return None
     d, h, v = _np_basis(camera, cfg.width, cfg.height)
@@ -157,11 +142,9 @@ def resolve_static(scene, camera, cfg) -> Optional[SwStatic]:
         qstep = max(1, n_slices // 8)
         slice0_static = max(0, min((s0 // qstep) * qstep, n_slices - 4))
     big = wi >= 1024 or dims_xyz[w1] >= 512
-    pallas = bool(cfg.sw_pallas) and vol.grid.is_cuda and kernel_lights_ok
     return SwStatic(axis=axis, sign=sign, n_slices=n_slices,
                     inter_h=hi_i, inter_w=wi, swap=swap,
-                    separable=separable, pallas=pallas,
-                    term=bool(cfg.sw_term), fd_grad=bool(big),
+                    separable=separable, term=bool(cfg.sw_term), fd_grad=bool(big),
                     slice0_static=slice0_static)
 
 
@@ -175,15 +158,6 @@ def _interp_matrix(src_pos: torch.Tensor, n_in: int) -> torch.Tensor:
     p = torch.clamp(src_pos, 0.0, n_in - 1.0)
     i = torch.arange(n_in, dtype=src_pos.dtype, device=src_pos.device)
     return torch.clamp(1.0 - torch.abs(p[:, None] - i[None, :]), min=0.0)
-
-
-def _interp_dw(pos: torch.Tensor, n: int) -> torch.Tensor:
-    """d(weights)/d(pos): (O, n), -sign inside the unit support (0 on a
-    node)."""
-    i = torch.arange(n, dtype=pos.dtype, device=pos.device)
-    d = pos[:, None] - i[None, :]
-    return torch.where((torch.abs(d) < 1.0) & (torch.abs(d) > 0.0),
-                       -torch.sign(d), torch.zeros_like(d))
 
 
 def _taps(pos: torch.Tensor, n: int):
@@ -256,18 +230,6 @@ def _common_rgba_table(color_table, alpha_table):
     return torch.cat([renode(color_table), renode(alpha_table)], dim=1)
 
 
-def _classify_impl(smp, rgba_tab, value_range):
-    """TF classification as one interpolation product: smp (H, W) ->
-    (rgb (H, W, 3), alpha (H, W))."""
-    k = rgba_tab.shape[0]
-    v = normalize_value(smp, value_range)
-    c = torch.clamp(v * (k - 1), 0.0, k - 1.0)
-    i = torch.arange(k, dtype=smp.dtype, device=smp.device)
-    w = torch.clamp(1.0 - torch.abs(c[..., None] - i), min=0.0)
-    rgba = torch.einsum("hwk,kc->hwc", w, rgba_tab)
-    return rgba[..., :3], rgba[..., 3]
-
-
 def _kernel_scalars(dt, device, *, lo1, ex1, lo2, ex2, e1, e2, dw1, dw2,
                     half, dz, off, vr, base, lam0, n_a, dlam, exa, ortho,
                     ld=(0.0, 0.0, 0.0), k1o=0.0, k2o=0.0, inv_da=0.0,
@@ -330,169 +292,6 @@ def _extra_lights_fan(scene, w1, w2, axis, dt):
 
 
 # ---------------------------------------------------------------------------
-# plain slice loops
-# ---------------------------------------------------------------------------
-
-def _plane_fields(st, P, lam_j, k0_j: int, fz_j, want_grad=True):
-    """Resample one slice plane: (smp (Hi, Wi), g1, g2, x1 (Wi,),
-    x2 (Hi,)). With `fd_grad`, g1/g2 are fan-space central differences
-    (one halo row beyond each edge; one-sided at the lateral borders);
-    otherwise the analytic bilinear derivative."""
-    sw, ortho, mode = st
-    grid = P["grid"]
-    _, n_r, n_c = grid.shape
-    dt = P["pg"].dtype
-    sl = grid[k0_j:k0_j + 2].to(dt)
-    plane = (sl[0] * (1.0 - fz_j) + sl[1] * fz_j) * storage_scale(grid.dtype)
-    fd = want_grad and sw.fd_grad
-    qg = P["qg"]
-    if fd:
-        dq = qg[1] - qg[0]
-        qg = torch.cat([qg[0:1] - dq, qg, qg[-1:] + dq])
-    if ortho:
-        x1 = P["pg"] + P["dw1"] * lam_j
-        x2e = qg + P["dw2"] * lam_j
-    else:
-        x1 = P["ew1"] + P["pg"] * lam_j
-        x2e = P["ew2"] + qg * lam_j
-    vc = torch.clamp((x1 - P["lo1"]) / P["ex1"] * n_c - 0.5, 0.0, n_c - 1.0)
-    vr = torch.clamp((x2e - P["lo2"]) / P["ex2"] * n_r - 0.5, 0.0,
-                     n_r - 1.0)
-    wc = _interp_matrix(vc, n_c)
-    wr = _interp_matrix(vr, n_r)
-    t1 = wr @ plane
-    smp_e = t1 @ wc.T
-    if not want_grad:
-        return smp_e, None, None, x1, x2e
-    if not fd:
-        g1 = (t1 @ _interp_dw(vc, n_c).T) * (n_c / P["ex1"])
-        g2 = ((_interp_dw(vr, n_r) @ plane) @ wc.T) * (n_r / P["ex2"])
-        return smp_e, g1, g2, x1, x2e
-    smp = smp_e[1:-1]
-    x2 = x2e[1:-1]
-    lamf = 1.0 if ortho else lam_j
-    dp = P["pg"][1] - P["pg"][0]
-    fwd = torch.roll(smp, -1, dims=1) - smp
-    bwd = smp - torch.roll(smp, 1, dims=1)
-    cen = 0.5 * (fwd + bwd)
-    wi = smp.shape[1]
-    col = torch.arange(wi, device=smp.device)[None, :]
-    g1 = torch.where(col == 0, fwd,
-                     torch.where(col == wi - 1, bwd, cen)) / (dp * lamf)
-    g2 = (smp_e[2:] - smp_e[:-2]) * (0.5 / ((qg[1] - qg[0]) * lamf))
-    return smp, g1, g2, x1, x2
-
-
-def _shade_fields(st, P, lam_j, j_pos: int, smp, g1, g2, prev_s,
-                  k0l_j: int, fzl_j, x1, x2):
-    """Classification, opacity correction and diffuse/shadow shading for
-    one resampled plane: (rgb, ncam, a). `prev_s` is the previous plane's
-    sample field (the axial difference), ignored at j_pos 0."""
-    sw, ortho, mode = st
-    seg_lo = torch.maximum(lam_j - P["half"], P["lin"])
-    seg_hi = torch.minimum(lam_j + P["half"], P["lout"])
-    dt_w = torch.clamp(seg_hi - seg_lo, min=0.0) * P["speed"]
-    rgb, a = _classify_impl(smp, P["tab"], P["vr"])
-    a = torch.where(dt_w > 0, opacity_correction(a, P["base"], dt_w), 0.0)
-    a = torch.clamp(a, max=A_MAX)
-
-    ds = (smp - prev_s) / P["dzdlam"] if j_pos > 0 else torch.zeros_like(smp)
-    ga = (ds - g1 * P["k1"] - g2 * P["k2"]) * P["inv_da"]
-    n1, n2, na = -g1, -g2, -ga
-    inv = torch.rsqrt(n1 * n1 + n2 * n2 + na * na + 1e-12)
-    cos_nl = torch.abs(P["ld1"] * n1 + P["ld2"] * n2 + P["lda"] * na) * inv
-    if mode == 2:
-        lgrid = P["lgrid"]
-        _, l_r, l_c = lgrid.shape
-        sll = lgrid[k0l_j:k0l_j + 2]
-        lplane = sll[0] * (1.0 - fzl_j) + sll[1] * fzl_j
-        lvc = torch.clamp((x1 - P["glo1"]) / P["gex1"] * l_c - 0.5, 0.0,
-                          l_c - 1.0)
-        lvr = torch.clamp((x2 - P["glo2"]) / P["gex2"] * l_r - 0.5, 0.0,
-                          l_r - 1.0)
-        sh = (_interp_matrix(lvr, l_r) @ lplane) @ _interp_matrix(lvc, l_c).T
-        shadow = torch.clamp(sh, 0.0, 1.0)
-    else:
-        shadow = 0.0
-    # primary light (intensity 2, x0.5 folded) + extra directional lights
-    total = cos_nl
-    if "eld" in P:
-        for i in range(P["eld"].shape[0]):
-            ce = torch.abs(P["eld"][i, 0] * n1 + P["eld"][i, 1] * n2
-                           + P["eld"][i, 2] * na) * inv
-            total = total + 0.5 * ce * P["eli"][i]
-    shade = 0.5 + total * (1.0 - shadow)
-    rgb = torch.clamp(rgb * shade[..., None], 0.0, 1.0)
-    nu = torch.stack([n1 * inv, n2 * inv, na * inv], -1)
-    ncam = torch.clamp(torch.einsum("ij,hwj->hwi", P["wtcp"], nu), 0.0, 1.0)
-    return rgb, ncam, a
-
-
-def _slices_xla_shaded(st, P):
-    """Shaded (diffuse/shadow) slice loop: premultiplied
-    (color (Hi,Wi,3), grad_cam (Hi,Wi,3), depth, alpha)."""
-    hi_i, wi_i = P["qg"].shape[0], P["pg"].shape[0]
-    opts = dict(dtype=P["pg"].dtype, device=P["pg"].device)
-    color = torch.zeros((hi_i, wi_i, 3), **opts)
-    gradc = torch.zeros((hi_i, wi_i, 3), **opts)
-    depth = torch.zeros((hi_i, wi_i), **opts)
-    trans = torch.ones((hi_i, wi_i), **opts)
-    prev_s = torch.zeros((hi_i, wi_i), **opts)
-    k0 = P["k0"].tolist()
-    k0l = P["k0l"].tolist()
-    for j in range(len(k0)):
-        lam_j = P["lam"][j]
-        smp, g1, g2, x1, x2 = _plane_fields(st, P, lam_j, k0[j], P["fz"][j])
-        rgb, ncam, a = _shade_fields(st, P, lam_j, j, smp, g1, g2, prev_s,
-                                     k0l[j], P["fzl"][j], x1, x2)
-        aw = (trans * a)[..., None]
-        color = color + aw * rgb
-        gradc = gradc + aw * ncam
-        depth = depth + aw[..., 0] * (lam_j * P["speed"])
-        trans = trans * (1.0 - a)
-        prev_s = smp
-    return color, gradc, depth, 1.0 - trans
-
-
-def _slices_xla_none(P, ortho: bool):
-    """Unshaded slice loop, the over-compositing of the per-plane step
-    f(j) -> (rgb, depth, a): premultiplied (color, depth, alpha)."""
-    grid = P["grid"]
-    _, n_r, n_c = grid.shape
-    hi_i, wi_i = P["qg"].shape[0], P["pg"].shape[0]
-    opts = dict(dtype=P["pg"].dtype, device=P["pg"].device)
-    big_v = torch.zeros((hi_i, wi_i, 4), **opts)
-    trans = torch.ones((hi_i, wi_i), **opts)
-    for j, k0_j in enumerate(P["k0"].tolist()):
-        lam_j = P["lam"][j]
-        fz_j = P["fz"][j]
-        sl = grid[k0_j:k0_j + 2].to(opts["dtype"])
-        plane = ((sl[0] * (1.0 - fz_j) + sl[1] * fz_j)
-                 * storage_scale(grid.dtype))
-        if ortho:
-            x1 = P["pg"] + P["dw1"] * lam_j
-            x2 = P["qg"] + P["dw2"] * lam_j
-        else:
-            x1 = P["ew1"] + P["pg"] * lam_j
-            x2 = P["ew2"] + P["qg"] * lam_j
-        wc = _interp_matrix((x1 - P["lo1"]) / P["ex1"] * n_c - 0.5, n_c)
-        wr = _interp_matrix((x2 - P["lo2"]) / P["ex2"] * n_r - 0.5, n_r)
-        smp = (wr @ plane) @ wc.T
-        seg_lo = torch.maximum(lam_j - P["half"], P["lin"])
-        seg_hi = torch.minimum(lam_j + P["half"], P["lout"])
-        dt_w = torch.clamp(seg_hi - seg_lo, min=0.0) * P["speed"]
-        rgb, a = _classify_impl(smp, P["tab"], P["vr"])
-        a = torch.where(dt_w > 0, opacity_correction(a, P["base"], dt_w),
-                        0.0)
-        rgb = torch.clamp(rgb, 0.0, 1.0)
-        v = torch.cat([rgb, (lam_j * P["speed"])[..., None]], dim=-1)
-        a = torch.clamp(a, 0.0, A_MAX)
-        big_v = big_v + (trans * a)[..., None] * v
-        trans = trans * (1.0 - a)
-    return big_v[..., :3], big_v[..., 3], 1.0 - trans
-
-
-# ---------------------------------------------------------------------------
 # the renderer
 # ---------------------------------------------------------------------------
 
@@ -518,16 +317,16 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     ortho = camera.kind == ORTHOGRAPHIC
     opts = dict(dtype=dt, device=dev)
 
-    # the kernel reads a storage-ordered view and walks it backward when
-    # sign < 0 (no flipped copy of the volume); the plain loops flip
-    grid = _volume_view(vol.grid, axis, 1 if sw.pallas else sign)
+    # the slice loop reads a storage-ordered view and walks it backward
+    # when sign < 0 (no flipped copy of the volume)
+    grid = _volume_view(vol.grid, axis, 1)
     maj_v = None
     zyx = vol.grid.shape
-    if (macrocells is not None and sw.pallas and cfg.sw_skip
+    if (macrocells is not None and cfg.sw_skip
             and tuple(macrocells.vol_dims) == (zyx[2], zyx[1], zyx[0])):
         maj_v = _volume_view(macrocells.majorant.float(), axis,
                              1).contiguous()
-    n_a, n_r, n_c = grid.shape
+    n_a = grid.shape[0]
     lo = vol.world_lo
     hi = vol.world_hi
     ext = hi - lo
@@ -562,38 +361,14 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     dq = (q_hi - q_lo) / hi_i
     pg = p_lo + (torch.arange(wi_i, **opts) + 0.5) * dp
     qg = q_lo + (torch.arange(hi_i, **opts) + 0.5) * dq
-    pp = pg[None, :].expand(hi_i, wi_i)
-    qq = qg[:, None].expand(hi_i, wi_i)
-
-    # ---- per-pixel box interval (dense slab test) -------------------------
     if ortho:
-        dvec = direction.expand(hi_i, wi_i, 3)
-        comp = [None] * 3
-        comp[w1], comp[w2] = pp, qq
-        comp[axis] = e[axis].expand(hi_i, wi_i)
-        ovec = torch.stack(comp, dim=-1)
-        speed = torch.ones((hi_i, wi_i), **opts)
         dlam = 1.0 / torch.clamp(torch.abs(direction[axis]), min=1e-12)
-        k1_map = direction[w1].expand(hi_i, wi_i)
-        k2_map = direction[w2].expand(hi_i, wi_i)
         inv_da = 1.0 / torch.where(torch.abs(direction[axis]) < 1e-12,
                                    torch.full_like(direction[axis], 1e-12),
                                    direction[axis])
     else:
-        comp = [None] * 3
-        comp[w1], comp[w2] = pp, qq
-        comp[axis] = torch.full((hi_i, wi_i), float(sign), **opts)
-        dvec = torch.stack(comp, dim=-1)
-        ovec = e.expand(hi_i, wi_i, 3)
-        speed = torch.sqrt(pp * pp + qq * qq + 1.0)
         dlam = 1.0
-        k1_map = pp
-        k2_map = qq
         inv_da = torch.tensor(float(sign), **opts)
-    zero = torch.zeros((hi_i, wi_i), **opts)
-    big = torch.full((hi_i, wi_i), 3.4e38, **opts)
-    l_in, l_out = intersect_box(ovec, dvec, lo, hi, zero, big)
-    l_out = torch.maximum(l_out, l_in)
 
     # ---- sample-plane schedule --------------------------------------------
     dz = ext[axis] / sw.n_slices
@@ -609,7 +384,6 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     smp0 = torch.zeros((), **opts)
     c = torch.clamp((z_rel - smp0) / ext[axis] * n_a - 0.5, 0.0, n_a - 1.0)
     k0 = torch.clamp(torch.floor(c).to(torch.int32), 0, n_a - 2)
-    fz = c - k0.to(dt)
     den_a = direction[axis] if ortho else (1.0 / sign)
     cl_a = (lo[axis] - e[axis]) / den_a
     cl_b = (hi[axis] - e[axis]) / den_a
@@ -634,22 +408,12 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         half=half, dz=dz, off=off + slice0, vr=value_range, base=base,
         lam0=lam[0] - (off + slice0) * dz * dlam, n_a=n_a, dlam=dlam,
         exa=ext[axis], ortho=ortho, **clip_scalars)
-    P = dict(grid=grid, tab=rgba_tab, vr=value_range, base=base, pg=pg,
-             qg=qg, lin=l_in, lout=l_out, speed=speed, lam=lam, fz=fz,
-             k0=k0, half=half, ew1=e[w1], ew2=e[w2], dw1=direction[w1],
-             dw2=direction[w2], lo1=lo1, lo2=lo2, ex1=ex1, ex2=ex2)
 
     if cfg.shading == "none":
-        if sw.pallas:
-            out8 = swslice.slice_composite(
-                grid, rgba_tab, _kernel_scalars(dt, dev, **common), pg, qg,
-                k0, n_loc, mode=0, majorant_v=maj_v, term=sw.term,
-                fd=sw.fd_grad, axial_flip=sign < 0)
-            color = out8[0:3].permute(1, 2, 0)
-            depth, alpha = out8[6], out8[7]
-        else:
-            color, depth, alpha = _slices_xla_none(P, ortho)
-        grad = torch.zeros((hi_i, wi_i, 3), **opts)
+        out8 = swslice.slice_composite(
+            grid, rgba_tab, _kernel_scalars(dt, dev, **common), pg, qg, k0,
+            n_loc, mode=0, majorant_v=maj_v, term=sw.term, fd=sw.fd_grad,
+            axial_flip=sign < 0)
     else:
         # ---- shaded (diffuse/shadow) path ---------------------------------
         light_dir = safe_normalize(scene.light.direction)
@@ -659,45 +423,29 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         mode = 2 if (cfg.shading == "shadow"
                      and light_grid is not None) else 1
         eld, eli = _extra_lights_fan(scene, w1, w2, axis, dt)
-        P.update(glo1=lo[w1], gex1=ext[w1], glo2=lo[w2], gex2=ext[w2],
-                 k1=k1_map, k2=k2_map, inv_da=inv_da, dzdlam=dz * dlam,
-                 ld1=light_dir[w1], ld2=light_dir[w2], lda=light_dir[axis],
-                 wtcp=wtcp)
-        if eld is not None:
-            P.update(eld=eld, eli=eli)
+        lgrid = k0l = None
+        n_la = 2.0
         if mode == 2:
             lgrid = _volume_view(light_grid.to(dt), axis, sign).contiguous()
             l_a = lgrid.shape[0]
             cl = torch.clamp(z_rel / ext[axis] * l_a - 0.5, 0.0, l_a - 1.0)
             k0l = torch.clamp(torch.floor(cl).to(torch.int32), 0,
                               max(l_a - 2, 0))
-            P.update(lgrid=lgrid, k0l=k0l, fzl=cl - k0l.to(dt))
             n_la = float(l_a)
-        else:
-            P.update(k0l=torch.zeros((n_loc,), dtype=torch.int32,
-                                     device=dev),
-                     fzl=torch.zeros((n_loc,), **opts))
-            n_la = 2.0
-        if sw.pallas:
-            sc = _kernel_scalars(
-                dt, dev, ld=(light_dir[w1], light_dir[w2], light_dir[axis]),
-                k1o=direction[w1] if ortho else zdt,
-                k2o=direction[w2] if ortho else zdt, inv_da=inv_da,
-                dzdlam=dz * dlam, n_la=n_la, wtcp=wtcp,
-                extra_lights=(eld, eli) if eld is not None else None,
-                **common)
-            out8 = swslice.slice_composite(
-                grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=mode,
-                lgrid=P.get("lgrid"), k0l=P["k0l"] if mode == 2 else None,
-                n_extra=0 if eld is None else eld.shape[0],
-                majorant_v=maj_v, term=sw.term, fd=sw.fd_grad,
-                axial_flip=sign < 0)
-            color = out8[0:3].permute(1, 2, 0)
-            grad = out8[3:6].permute(1, 2, 0)
-            depth, alpha = out8[6], out8[7]
-        else:
-            color, grad, depth, alpha = _slices_xla_shaded(
-                (sw, ortho, mode), P)
+        sc = _kernel_scalars(
+            dt, dev, ld=(light_dir[w1], light_dir[w2], light_dir[axis]),
+            k1o=direction[w1] if ortho else zdt,
+            k2o=direction[w2] if ortho else zdt, inv_da=inv_da,
+            dzdlam=dz * dlam, n_la=n_la, wtcp=wtcp,
+            extra_lights=(eld, eli) if eld is not None else None, **common)
+        out8 = swslice.slice_composite(
+            grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=mode, lgrid=lgrid,
+            k0l=k0l, n_extra=0 if eld is None else eld.shape[0],
+            majorant_v=maj_v, term=sw.term, fd=sw.fd_grad,
+            axial_flip=sign < 0)
+    color = out8[0:3].permute(1, 2, 0)
+    grad = out8[3:6].permute(1, 2, 0)
+    depth, alpha = out8[6], out8[7]
     return _sw_warp_out(color, grad, depth, alpha, cfg, sw, p_scr, q_scr,
                         p_lo, q_lo, dp, dq, pg, u, v, e, direction,
                         horizontal, vertical, axis, w1, w2, sign, ortho)

@@ -225,7 +225,6 @@ def test_resolve_static_matches(cam):
     for f in ("axis", "sign", "n_slices", "inter_h", "inter_w", "swap",
               "separable", "row_chunk", "term", "fd_grad", "slice0_static"):
         assert getattr(tp, f) == getattr(jp, f), f
-    assert tp.pallas is False  # CPU tensors: the plain loops
 
 
 def test_common_rgba_table_matches(rng):
@@ -309,8 +308,9 @@ def _tiny_scene(**kw):
 
 
 @pytest.mark.parametrize("what", ["march", "path_tracing", "point_light",
-                                  "jitter_rays", "last_camera", "sw_bf16",
-                                  "geometry", "neural"])
+                                  "five_lights", "jitter_rays",
+                                  "last_camera", "sw_bf16", "geometry",
+                                  "neural"])
 def test_unsupported_features_raise(what):
     scene = _tiny_scene()
     kw = dict(width=16, height=16, sampling_rate=8.0, shading="none",
@@ -324,6 +324,11 @@ def test_unsupported_features_raise(what):
         kw["shading"] = "diffuse"
         scene = _tiny_scene(lights=(Light.create(kind="point",
                                                  device="cpu"),))
+    elif what == "five_lights":  # the kernel has 4 extra-light slots
+        kw["shading"] = "diffuse"
+        scene = _tiny_scene(lights=tuple(
+            Light.create(direction=(0.1 * i, 0.3, -1.0), device="cpu")
+            for i in range(5)))
     elif what == "jitter_rays":
         kw["jitter_rays"] = True
     elif what == "last_camera":
@@ -348,9 +353,7 @@ def test_cpu_render_never_launches():
     cfg = api.RenderConfig(width=16, height=16, sampling_rate=8.0,
                            shading="diffuse", method="shearwarp"
                            ).resolved(scene)
-    forced = dataclasses.replace(cfg, sw=dataclasses.replace(cfg.sw,
-                                                             pallas=True))
     before = swslice.LAUNCHES
-    frame = api.render(scene, forced)
+    frame = api.render(scene, cfg)
     assert swslice.LAUNCHES == before
     assert torch.isfinite(frame.rgba).all()

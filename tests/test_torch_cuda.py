@@ -77,7 +77,7 @@ def capture(scene, shading, fd=True, skip=False, base_rate=1.0,
                            shading=shading, method="shearwarp",
                            base_rate=base_rate).resolved(scene)
     cfg = dataclasses.replace(cfg, sw=dataclasses.replace(
-        cfg.sw, pallas=True, fd_grad=fd))
+        cfg.sw, fd_grad=fd))
     mc = (accel.build_macrocells(scene.volume.grid, scene.tfn.alpha,
                                  scene.tfn.value_range) if skip else None)
     seen = {}
@@ -153,7 +153,6 @@ def test_render_on_card_matches_cpu(shading):
         cfg = api.RenderConfig(width=72, height=56, sampling_rate=48.0,
                                shading=shading, method="auto"
                                ).resolved(scene)
-        assert cfg.sw.pallas == (device == "cuda")
         mc = accel.build_macrocells(scene.volume.grid, scene.tfn.alpha,
                                     scene.tfn.value_range)
         before = swslice.LAUNCHES
@@ -163,3 +162,21 @@ def test_render_on_card_matches_cpu(shading):
     for name in ("rgba", "grad", "depth"):
         np.testing.assert_allclose(getattr(card, name).cpu().numpy(),
                                    getattr(cpu, name).numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_five_extra_lights_raise_on_card():
+    """The kernel has slots for 4 extra directional lights: a shaded
+    frame with 5 raises instead of rendering some other way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _scene("smooth", "f32", "persp", n=16, device="cuda")
+    scene = dataclasses.replace(scene, lights=tuple(
+        Light.create(direction=(0.1 * i, 0.3, -1.0), device="cuda")
+        for i in range(5)))
+    cfg = api.RenderConfig(width=32, height=24, sampling_rate=16.0,
+                           shading="diffuse", method="auto").resolved(scene)
+    before = swslice.LAUNCHES
+    with pytest.raises(NotImplementedError, match="slice"):
+        api.render(scene, cfg)
+    assert swslice.LAUNCHES == before

@@ -2,11 +2,10 @@
 package's, end to end on the CPU.
 
 One JAX scene, built from numpy, crosses over through
-`convert.arrays_from_scene`. Each case renders in both packages on both
-forms of the slice loop: the plain loops (JAX's XLA path, the port's
-`_slices_xla_*`) and the fused kernel (JAX's Pallas kernel in interpret
-mode, the port's `slice_composite` on CPU tensors, i.e. its plain
-version). Tolerances: rgba and normals 5e-5, depth 2e-4 (the JAX
+`convert.arrays_from_scene`. The port's slice loop on CPU tensors is
+`slice_composite_plain`; each case holds it against both forms of JAX's
+slice loop: the XLA path ("xla") and the Pallas kernel in interpret mode
+("kernel"). Tolerances: rgba and normals 5e-5, depth 2e-4 (the JAX
 suite's kernel-vs-XLA parity), early termination 5e-4. The shadow
 lattice is built once by the JAX package outside jit (its swept
 builder) and handed to both renderers.
@@ -70,20 +69,22 @@ def _scenes(cam, n=24, kind="smooth", alpha=None):
 
 
 def _forced(cfg):
+    """JAX's plan with the Pallas kernel forced on (interpret mode)."""
     return dataclasses.replace(cfg, sw=dataclasses.replace(cfg.sw,
                                                            pallas=True))
 
 
 def render_both(js, ts, shading, kernel, macrocells=False, **kw):
-    """(JAX frame, port frame) for one config on one slice-loop form."""
+    """(JAX frame, port frame) for one config; `kernel` picks JAX's
+    slice-loop form."""
     kw = dict(dict(width=48, height=40, sampling_rate=32.0), **kw)
     jc = japi.RenderConfig(shading=shading, method="shearwarp",
                            **kw).resolved(js)
     tc = api.RenderConfig(shading=shading, method="shearwarp",
                           **kw).resolved(ts)
-    assert tc.sw.pallas is False and jc.sw.pallas is False
+    assert jc.sw.pallas is False
     if kernel:
-        jc, tc = _forced(jc), _forced(tc)
+        jc = _forced(jc)
     jkw, tkw = {}, {}
     if shading == "shadow":
         lg = japi.build_light_grid(js, jc)
@@ -171,7 +172,11 @@ def test_persp_shearwarp_golden(kernel):
     this scene's clipped plateaus (values exactly 1.0) give normals of
     rounding-noise gradients: at silhouette pixels (alpha ~0.01) the
     division amplifies their differences a hundredfold, so that even the
-    JAX package's own Pallas kernel misses the straight golden there."""
+    JAX package's own Pallas kernel misses the straight golden there.
+
+    "xla" composites every plane as JAX's XLA loop does (no termination,
+    no skipping); "kernel" turns on the kernel's termination and
+    macrocell skipping."""
     import os
 
     from tests.goldens.gen import cameras, golden_scene
@@ -182,11 +187,11 @@ def test_persp_shearwarp_golden(kernel):
     ts = scene_from_arrays(arrays_from_scene(
         dataclasses.replace(js, camera=persp)), device="cpu")
     cfg = api.RenderConfig(width=96, height=80, spp=1, sampling_rate=64.0,
-                           shading="diffuse", method="shearwarp"
-                           ).resolved(ts)
-    if kernel:
-        cfg = _forced(cfg)
-    rgba = api.render(ts, cfg).rgba.numpy()
+                           shading="diffuse", method="shearwarp",
+                           sw_term=kernel).resolved(ts)
+    mc = (accel.build_macrocells(ts.volume.grid, ts.tfn.alpha,
+                                 ts.tfn.value_range) if kernel else None)
+    rgba = api.render(ts, cfg, macrocells=mc).rgba.numpy()
     golden = golden.astype(np.float32)
 
     def premult(x):
