@@ -3,18 +3,27 @@
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit);
-2. builds csrc/swslice.cu with nvcc and prints the ptxas summary;
+2. builds csrc/swslice.cu with nvcc and prints, per kernel variant, the
+   registers and spills ptxas reports;
 3. holds the slice kernel against its plain PyTorch version on the card
    for modes 0/1/2, both gradient stencils, skipping and termination on
-   and off, f32/bf16/u8 grids, perspective and orthographic cameras, at
-   64^3 and 256^3 and on the 1024^3 headline volume at 240x135;
+   and off, f32/bf16/u8 grids, perspective, orthographic and principal-x
+   cameras (the last with strided fan columns), at 64^3 and 256^3 and on
+   the 1024^3 headline volume at 240x135 (a fan so coarse that the tiles'
+   footprints exceed the slab windows); in each case it also runs the
+   kernel's counting variant, which must give the same bits, and holds
+   the planes per block and the samples each pixel needs against the
+   plain version's counts, and the planes sampled from staged slab
+   windows or straight from the grid against the path the case must take;
 4. renders the headline frame through `api.render`: a 1024^3 bf16 volume
    (bench.py's synthetic field, built on the card), 1920x1080, 1024
-   planes, macrocell skipping on, in diffuse, none and shadow shading;
-   checks each frame, counts kernel launches, and times frames and the
-   kernel alone with CUDA events; then holds the kernel against its plain
-   version on each headline frame's own inputs, cut to a band of 64 fan
-   rows with all 2048 columns, and times both there;
+   planes, macrocell skipping on, in diffuse, none and shadow shading and
+   in diffuse from the principal x axis; checks each frame, counts kernel
+   launches, and times frames and the kernel alone with CUDA events;
+   prints the kernel variant's threads, dynamic shared memory and blocks
+   per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor); then holds the
+   kernel against its plain version on each headline frame's own inputs,
+   cut to a band of 64 fan rows with all columns, and times both there;
 5. prints one JSON line of kernel measurements, then, last, the device
    line {"ok": true, "device": {...}}.
 
@@ -27,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +102,8 @@ CAMERAS = {
     "ortho": dict(from_=(0.5, 0.5, -2.0), at=(0.5, 0.5, 0.5), height=1.3,
                   kind="orthographic"),
     "back": dict(from_=(0.45, 0.6, 2.3), at=(0.5, 0.5, 0.5), fovy=40.0),
+    # principal axis x: the fan's columns are the volume's y axis
+    "side": dict(from_=(-1.6, 0.5, 0.5), at=(0.5, 0.5, 0.5), fovy=45.0),
 }
 
 
@@ -158,14 +170,71 @@ def compare(out, ref, term):
     return err_c, err_a, err_d, ok
 
 
+PTX_TYPES = {"f": "f32", "6bf16_t": "bf16", "h": "u8", "t": "u16"}
+
+
+def ptxas_summary(text):
+    """{(dtype, mode, fd, counting): (registers, spill store bytes, spill
+    load bytes)} of each kernel variant, from `nvcc -Xptxas -v`."""
+    out, key, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Function properties for _Z14swslice_kernelI(\w+?)"
+                      r"Li(\d)ELb(\d)ELb(\d)E", line)
+        if m:
+            key = (PTX_TYPES.get(m.group(1), m.group(1)), int(m.group(2)),
+                   bool(int(m.group(3))), bool(int(m.group(4))))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key is not None:
+            out[key] = (int(m.group(1)), *spills)
+            key, spills = None, (0, 0)
+    return out
+
+
 def build_kernel():
     from ovr_tpu_torch.ops import cuda_build
     built = cuda_build.load("swslice")
-    log(f"swslice build: {built.seconds:.1f} s -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas:", line.strip())
-    return built
+    regs = ptxas_summary(built.log)
+    log(f"swslice build: {built.seconds:.1f} s -> {built.path.name}, "
+        f"{len(regs)} kernel variants (ptxas: registers per thread, spill "
+        f"store/load bytes):")
+    for (dt, mode, fd, cnt), (r, st, ld) in sorted(regs.items()):
+        log(f"  {dt:4s} mode {mode} fd={fd:d}{' counting' if cnt else ''}: "
+            f"{r} registers, spills {st}/{ld} B")
+    if len(regs) != 40:
+        raise SystemExit(f"expected 40 kernel variants in the ptxas log, "
+                         f"found {len(regs)}")
+    return regs
+
+
+def counts(args):
+    """Zeroed block_planes (per block) and pixel_samples (per fan pixel)."""
+    import torch
+    from ovr_tpu_torch.ops import swslice
+    hi, wi = args[4].shape[0], args[3].shape[0]
+    n_blocks = (-(-hi // swslice.BLOCK_ROWS)
+                * -(-wi // swslice.BLOCK_COLS))
+    z = dict(dtype=torch.int32, device=args[0].device)
+    return dict(block_planes=torch.zeros(n_blocks, **z),
+                pixel_samples=torch.zeros((hi, wi), **z))
+
+
+def counted(args, kw, out):
+    """The kernel's counting variant on the same inputs: its counts and
+    its planes sampled from staged windows / from the grid. Exits unless
+    it gives the same bits as `out`, the timed variant's result."""
+    import torch
+    from ovr_tpu_torch.ops import swslice
+    cnt = counts(args)
+    stages = torch.zeros(2, dtype=torch.int32, device=args[0].device)
+    out_c = swslice.slice_composite(*args, **dict(kw, **cnt),
+                                    stage_counts=stages)
+    if not torch.equal(out_c, out):
+        raise SystemExit("the kernel's counting variant gives other bits")
+    return cnt, stages.tolist()
 
 
 def parity(grids):
@@ -176,33 +245,42 @@ def parity(grids):
     from ovr_tpu_torch.render import accel
 
     # (n, dtype, kind, shading, fd, skip, term, cam, width, height, lights)
+    # and the path the kernel must take: slab windows staged in shared
+    # memory, taps read straight from the grid (strided fan columns), or
+    # some of each (tile footprints larger than the windows)
     cases = [
-        (64, "f32", "bench", "none", True, False, False, "persp", 160, 90, 0),
-        (64, "u8", "sparse", "none", True, True, True, "ortho", 160, 90, 0),
+        (64, "f32", "bench", "none", True, False, False, "persp", 160, 90, 0,
+         "staged"),
+        (64, "u8", "sparse", "none", True, True, True, "ortho", 160, 90, 0,
+         "staged"),
         (64, "bf16", "bench", "diffuse", True, False, False, "persp", 240,
-         135, 0),
+         135, 0, "staged"),
         (64, "f32", "sparse", "diffuse", False, True, True, "ortho", 240,
-         135, 0),
+         135, 0, "staged"),
         (64, "u8", "sparse", "shadow", True, True, False, "persp", 160, 90,
-         2),
+         2, "staged"),
         (64, "bf16", "opaque", "shadow", False, False, True, "back", 160, 90,
-         0),
+         0, "staged"),
         (64, "f32", "opaque", "diffuse", True, False, True, "back", 160, 90,
-         4),
+         4, "staged"),
         (256, "bf16", "sparse", "diffuse", True, True, False, "persp", 480,
-         270, 0),
+         270, 0, "staged"),
         (256, "u8", "opaque", "shadow", True, False, True, "ortho", 480, 270,
-         0),
-        (256, "f32", "sparse", "none", True, True, True, "back", 480, 270, 0),
+         0, "staged"),
+        (256, "f32", "sparse", "none", True, True, True, "back", 480, 270, 0,
+         "staged"),
+        (256, "bf16", "bench", "diffuse", True, True, True, "side", 480, 270,
+         0, "direct"),
         (1024, "bf16", "bench", "diffuse", True, True, True, "persp", 240,
-         135, 0),
+         135, 0, "some direct"),
         (1024, "bf16", "bench", "none", True, True, False, "persp", 240, 135,
-         0),
+         0, "some direct"),
         (1024, "bf16", "bench", "shadow", True, True, True, "persp", 240, 135,
-         0),
+         0, "some direct"),
     ]
     worst = 0.0
-    for (n, dt, kind, shading, fd, skip, term, cam, w, h, nl) in cases:
+    for (n, dt, kind, shading, fd, skip, term, cam, w, h, nl,
+         path) in cases:
         grid = grids[(n, dt, "sparse" if kind == "sparse" else "bench")]
         scene = make_scene(grid, kind, cam, nl)
         cfg = api.RenderConfig(
@@ -214,46 +292,47 @@ def parity(grids):
         mc = (accel.build_macrocells(grid, scene.tfn.alpha,
                                      scene.tfn.value_range) if skip else None)
         args, kw = capture(scene, cfg, macrocells=mc)
+        name = f"{n}^3 {dt} {kind} {shading} {cam} {w}x{h}"
         n0 = swslice.LAUNCHES
         out = swslice.slice_composite(*args, **kw)
         torch.cuda.synchronize()
         if swslice.LAUNCHES != n0 + 1:
             raise SystemExit("slice_composite did not launch the kernel")
-        ref = swslice.slice_composite_plain(*args, **kw)
+        cnt, (staged, direct) = counted(args, kw, out)
+        cnt_p = counts(args)
+        ref = swslice.slice_composite_plain(*args, **kw, **cnt_p)
         err_c, err_a, err_d, ok = compare(out, ref, term)
         worst = max(worst, err_c, err_a, err_d)
         alpha_max = float(ref[7].max())
-        log(f"parity {n}^3 {dt:4s} {kind:6s} {shading:7s} fd={fd:d} "
-            f"skip={skip:d} term={term:d} {cam:5s} {w}x{h} lights={nl}: "
-            f"rgb/n {err_c:.2e} alpha {err_a:.2e} depth {err_d:.2e} "
-            f"(max alpha {alpha_max:.3f}) {'ok' if ok else 'FAIL'}")
-        if not ok or alpha_max < 0.05:
-            raise SystemExit(f"kernel disagrees with the plain version "
-                             f"(or nothing in view) in case {n}^3 {dt} "
-                             f"{kind} {shading}")
+        same = all(torch.equal(cnt[k], cnt_p[k]) for k in cnt)
+        path_ok = {"staged": staged > 0, "some direct": direct > 0,
+                   "direct": direct > 0 and staged == 0}[path]
+        log(f"parity {name} fd={fd:d} skip={skip:d} term={term:d} "
+            f"lights={nl}: rgb/n {err_c:.2e} alpha {err_a:.2e} depth "
+            f"{err_d:.2e} (max alpha {alpha_max:.3f}); planes per block and "
+            f"samples per pixel {'equal' if same else 'DIFFER'} "
+            f"({int(cnt['pixel_samples'].sum())} samples); planes sampled "
+            f"from staged windows {staged}, from the grid {direct} (must be "
+            f"{path}) {'ok' if ok and same and path_ok else 'FAIL'}")
+        if not ok or not same or not path_ok or alpha_max < 0.05:
+            raise SystemExit(f"kernel disagrees with the plain version, "
+                             f"took the wrong path, or nothing is in view, "
+                             f"in case {name}")
     return worst
 
 
-def bound(args, kw, planes):
+def bound(args, kw, pixel_samples):
     """Least time for the slice function on these inputs: each input read
     once and the output written once at the HBM rate, against the
     operations of the samples this run needs at the f32 rate. The samples
-    are those of the planes each block composited (skipping and
-    termination as the function defines them), plus, with the FD
-    gradient, the two halo rows beyond the fan's first and last row."""
+    are counted per pixel, whatever the tile (`pixel_samples`, as the
+    kernel's counting variant counts them): those at which the pixel's
+    T > 1e-4 and its opacity is not zero, and in shaded modes the previous
+    computed plane before each such one. Neighbours that only feed an FD
+    gradient are not counted, so this stays a lower bound."""
     import torch
-    from ovr_tpu_torch.ops import swslice
-    grid, _, _, pg, qg = args[:5]
-    hi, wi = qg.shape[0], pg.shape[0]
-    nbr, nbc = -(-hi // swslice.BLOCK_ROWS), -(-wi // swslice.BLOCK_COLS)
-    rows = torch.tensor([min(swslice.BLOCK_ROWS, hi - r * swslice.BLOCK_ROWS)
-                         for r in range(nbr)], dtype=torch.float64)
-    cols = torch.tensor([min(swslice.BLOCK_COLS, wi - c * swslice.BLOCK_COLS)
-                         for c in range(nbc)], dtype=torch.float64)
-    p = planes.view(nbr, nbc).double().cpu()
-    samples = float((p * rows[:, None] * cols[None, :]).sum())
-    if kw["mode"] >= 1 and kw["fd"]:
-        samples += float((p[0] * cols).sum() + (p[-1] * cols).sum())
+    hi, wi = args[4].shape[0], args[3].shape[0]
+    samples = float(pixel_samples.sum(dtype=torch.float64))
     inputs = [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in inputs) + 8 * hi * wi * 4
     ops = ops_per_sample(kw["mode"], kw["fd"], kw.get("n_extra", 0))
@@ -293,27 +372,49 @@ def breakdown(scene, cfg, mc):
         log(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
 
 
-def main_path(grid, card):
-    """The headline frame through api.render, per shading."""
+# (label, shading, camera) of the timed headline frames
+HEADLINES = (("diffuse", "diffuse", "persp"), ("none", "none", "persp"),
+             ("shadow", "shadow", "persp"), ("diffuse-x", "diffuse", "side"))
+
+
+def headline_cfg(scene, shading):
+    """The headline frame's resolved config: 1920x1080, 1024 planes."""
+    from ovr_tpu_torch import api
+    cfg = api.RenderConfig(
+        width=1920, height=1080, spp=1, sampling_rate=1024.0,
+        shading=shading, method="auto", fast_math=True,
+        use_macrocells=True).resolved(scene)
+    if cfg.sw is None:
+        raise SystemExit(f"{shading}: the headline does not take the "
+                         "kernel's shear-warp path")
+    return cfg
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def main_path(grid, card, regs):
+    """The headline frame through api.render, per shading, and in diffuse
+    from the principal x axis."""
     import torch
     from ovr_tpu_torch import api
     from ovr_tpu_torch.ops import swslice
     from ovr_tpu_torch.render import accel
 
-    scene = make_scene(grid, "bench", "persp")
-    mc = accel.build_macrocells(grid, scene.tfn.alpha,
-                                scene.tfn.value_range)
+    scenes = {cam: make_scene(grid, "bench", cam) for cam in ("persp", "side")}
+    mc = accel.build_macrocells(grid, scenes["persp"].tfn.alpha,
+                                scenes["persp"].tfn.value_range)
     width, height, frames, warm = 1920, 1080, FRAMES, WARMUP
     results = {}
     swslice.LAUNCHES = 0
-    for shading in ("diffuse", "none", "shadow"):
-        cfg = api.RenderConfig(
-            width=width, height=height, spp=1, sampling_rate=1024.0,
-            shading=shading, method="auto", fast_math=True,
-            use_macrocells=True).resolved(scene)
-        if cfg.sw is None:
-            raise SystemExit(f"{shading}: the headline does not take the "
-                             "kernel's shear-warp path")
+    for label, shading, cam in HEADLINES:
+        scene = scenes[cam]
+        cfg = headline_cfg(scene, shading)
         lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
               else None)
         n0 = swslice.LAUNCHES
@@ -326,7 +427,7 @@ def main_path(grid, card):
         if not (finite and float(a.min()) >= 0.0 and float(a.max()) <= 1.0
                 and float(a.max()) > 0.5
                 and tuple(rgba.shape) == (height, width, 4)):
-            raise SystemExit(f"{shading} frame failed its checks")
+            raise SystemExit(f"{label} frame failed its checks")
         for _ in range(warm):
             api.render(scene, cfg, macrocells=mc, light_grid=lg)
         torch.cuda.reset_peak_memory_stats()
@@ -334,47 +435,62 @@ def main_path(grid, card):
                                               light_grid=lg), frames)
         peak = torch.cuda.max_memory_allocated()
         if swslice.LAUNCHES - n0 != 1 + warm + frames:
-            raise SystemExit(f"{shading}: {swslice.LAUNCHES - n0} kernel "
+            raise SystemExit(f"{label}: {swslice.LAUNCHES - n0} kernel "
                              f"launches for {1 + warm + frames} frames")
-        results[shading] = dict(frame_ms=frame_ms, peak_bytes=peak,
-                                cfg=cfg, lg=lg,
-                                alpha_mean=float(a.mean()))
+        results[label] = dict(frame_ms=frame_ms, peak_bytes=peak, cfg=cfg,
+                              lg=lg, scene=scene, axis=cfg.sw.axis,
+                              alpha_mean=float(a.mean()))
     launches = swslice.LAUNCHES
-    breakdown(scene, results["diffuse"]["cfg"], mc)
+    breakdown(scenes["persp"], results["diffuse"]["cfg"], mc)
 
     # the kernel alone, and against its plain version, on the inputs of
     # each headline frame (these launches are not the main path's)
-    for shading, r in results.items():
-        args, kw = capture(scene, r["cfg"], macrocells=mc,
+    for label, r in results.items():
+        args, kw = capture(r["scene"], r["cfg"], macrocells=mc,
                            light_grid=r["lg"])
         hi, wi = args[4].shape[0], args[3].shape[0]
-        planes = torch.zeros(-(-hi // swslice.BLOCK_ROWS)
-                             * -(-wi // swslice.BLOCK_COLS),
-                             dtype=torch.int32, device=grid.device)
-        full = swslice.slice_composite(*args, **dict(kw, block_planes=planes))
+        full = swslice.slice_composite(*args, **kw)
+        cnt, (staged, direct) = counted(args, kw, full)
         r["kernel_ms"] = cuda_ms(
             lambda: swslice.slice_composite(*args, **kw), 5)
         (r["bound_ms"], r["bound_by"], r["samples"], r["bytes"],
-         r["ops_per_sample"]) = bound(args, kw, planes)
+         r["ops_per_sample"]) = bound(args, kw, cnt["pixel_samples"])
+        r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
         r["fan"] = (hi, wi)
         r["planes"] = args[6]
-        band_check(shading, r, args, kw, full)
+        r["block_planes"] = int(cnt["block_planes"].sum())
+        r["planes_staged"], r["planes_direct"] = staged, direct
+        mode, fd = kw["mode"], kw["fd"] and kw["mode"] >= 1
+        occ = swslice.kernel_occupancy(args[0], mode, fd, args[1].shape[0],
+                                       args[6], axial_flip=kw["axial_flip"])
+        reg = regs[("bf16", mode, fd, False)]
+        r.update(occ, registers=reg[0], spill_bytes=reg[1] + reg[2])
+        log(f"kernel {label}: bf16 mode {mode} fd={fd:d} variant, "
+            f"{reg[0]} registers, spills {reg[1]}/{reg[2]} B (ptxas); "
+            f"{occ['threads']} threads, {occ['smem_bytes']} B dynamic "
+            f"shared memory, {occ['blocks_per_sm']} blocks/SM (CUDA "
+            f"occupancy API); planes sampled from staged windows {staged}, "
+            f"from the grid {direct}; planes composited {r['block_planes']}")
+        band_check(label, r, args, kw, full)
         mrays = width * height / (r["frame_ms"] * 1e-3) / 1e6
-        log(f"headline {shading:7s} 1920x1080 1024^3 bf16: frame "
+        log(f"headline {label:9s} 1920x1080 1024^3 bf16: frame "
             f"{r['frame_ms']:.2f} ms ({mrays:.2f} Mrays/s), kernel "
-            f"{r['kernel_ms']:.2f} ms, bound {r['bound_ms']:.2f} ms "
-            f"({r['bound_by']}; {r['samples']:.3e} samples needed of "
-            f"{hi * wi * args[6]:.3e}, {r['ops_per_sample']} ops each), "
-            f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB, fan {hi}x{wi}, "
-            f"{args[6]} planes, mean alpha {r['alpha_mean']:.3f}; {card}")
+            f"{r['kernel_ms']:.2f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}; {r['samples']:.4e} samples needed of "
+            f"{hi * wi * args[6]:.3e}, {r['ops_per_sample']} ops each; "
+            f"{100 * r['share_of_bound']:.1f}% of the bound), peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, fan {hi}x{wi}, "
+            f"{args[6]} planes, axis {r['axis']}, mean alpha "
+            f"{r['alpha_mean']:.3f}; {card}")
         r["mrays_s"] = mrays
     return results, launches
 
 
-def band_check(shading, r, args, kw, full):
+def band_check(label, r, args, kw, full):
     """The kernel against its plain version on the headline frame's own
     inputs, cut to a band of BAND_ROWS fan rows (all columns) that starts
-    on a block boundary in the middle of the fan; times both there."""
+    on a block boundary in the middle of the fan; the counts too. Times
+    both there."""
     import torch
     from ovr_tpu_torch.ops import swslice
     hi = args[4].shape[0]
@@ -382,8 +498,11 @@ def band_check(shading, r, args, kw, full):
     band = list(args)
     band[4] = args[4][r0:r0 + BAND_ROWS]
     out = swslice.slice_composite(*band, **kw)
-    ref = swslice.slice_composite_plain(*band, **kw)
+    cnt, _ = counted(band, kw, out)
+    cnt_p = counts(band)
+    ref = swslice.slice_composite_plain(*band, **kw, **cnt_p)
     err_c, err_a, err_d, ok = compare(out, ref, kw["term"])
+    same = all(torch.equal(cnt[k], cnt_p[k]) for k in cnt)
     alpha_max = float(ref[7].max())
     r["band"] = f"fan rows {r0}-{r0 + BAND_ROWS - 1} of {hi}, all columns"
     r["band_err"] = max(err_c, err_a, err_d)
@@ -394,12 +513,14 @@ def band_check(shading, r, args, kw, full):
     # the band's FD rows lie on its own row lattice, so it matches the
     # full frame's rows closely but not bit for bit
     vs_full = float((out - full[:, r0:r0 + BAND_ROWS]).abs().max())
-    log(f"parity headline {shading:7s} {r['band']}: rgb/n {err_c:.2e} "
+    log(f"parity headline {label:9s} {r['band']}: rgb/n {err_c:.2e} "
         f"alpha {err_a:.2e} depth {err_d:.2e} (max alpha {alpha_max:.3f}; "
-        f"{vs_full:.2e} from the full frame's rows); plain "
+        f"{vs_full:.2e} from the full frame's rows); planes per block and "
+        f"samples per pixel {'equal' if same else 'DIFFER'}; plain "
         f"{r['band_plain_ms']:.1f} ms, kernel {r['band_kernel_ms']:.3f} ms "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok or alpha_max < 0.05 or not torch.isfinite(out).all():
+        f"{'ok' if ok and same else 'FAIL'}")
+    if (not ok or not same or alpha_max < 0.05
+            or not torch.isfinite(out).all()):
         raise SystemExit("kernel disagrees with the plain version on the "
                          "headline frame's inputs")
 
@@ -416,14 +537,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({torch.cuda.device_count()} visible); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    build_kernel()
+    regs = build_kernel()
 
     dev = torch.device("cuda")
     grids = {}
@@ -446,7 +564,7 @@ def main() -> int:
     log(f"parity: all cases agree, largest difference {worst:.2e} "
         f"({time.perf_counter() - t0:.0f} s so far)")
 
-    results, launches = main_path(grids[(1024, "bf16", "bench")], smi)
+    results, launches = main_path(grids[(1024, "bf16", "bench")], smi, regs)
     if launches < 1:
         raise SystemExit("the main path never launched the slice kernel")
     head = results["diffuse"]
@@ -468,11 +586,12 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": "1024^3 bf16, 1920x1080, 1024 planes, diffuse",
-        "modes": {s: {k: r[k] for k in ("kernel_ms", "frame_ms", "mrays_s",
-                                         "bound_ms", "bound_by", "samples",
-                                         "ops_per_sample", "band_plain_ms",
-                                         "band_kernel_ms", "band_err",
-                                         "peak_bytes")}
+        "modes": {s: {k: r[k] for k in (
+            "kernel_ms", "frame_ms", "mrays_s", "bound_ms", "bound_by",
+            "samples", "ops_per_sample", "share_of_bound", "band_plain_ms",
+            "band_kernel_ms", "band_err", "peak_bytes", "registers",
+            "spill_bytes", "threads", "smem_bytes", "blocks_per_sm",
+            "planes_staged", "planes_direct", "axis")}
                   for s, r in results.items()},
         "card": smi,
     }

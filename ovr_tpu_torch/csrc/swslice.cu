@@ -14,18 +14,55 @@
 // mode 2 a shadow read from the light lattice, then over-composite into
 // 8 channels [r, g, b, nx, ny, nz, depth, alpha].
 //
-// Design. The TPU kernel resampled planes with 2-banded hat-matrix
-// matmuls and gathered the transfer function through 128-lane chunks,
-// because the TPU has no gather. Here each thread owns one fan pixel and
-// reads its 8 taps straight from the native-dtype grid (f32, bf16, u8,
-// u16; any strides, a negative axial stride walks the volume backward);
-// a block of BR x BC pixels loops over the planes itself, which replaces
-// the TPU's sequential grid axis, and keeps the 8 accumulators and the
-// previous plane's sample in registers. The finite-difference gradient
-// needs the neighbours' samples: each plane's block tile plus a one-
-// sample halo (computed by the first 2*(BR+BC) threads) goes through
-// shared memory. The RGBA table and the 72 scalars sit in shared memory.
-// One launch per frame.
+// What bounds it. At the headline frame (1024^3 bf16 volume, 1024
+// planes, 1352 x 2048 fan) the function must read the 2.15 GB grid once
+// and write an 88.6 MB result (about 0.67 ms at 3.35 TB/s) and needs 81
+// (mode 0) to 178 (mode 2, FD gradient) f32 operations on each of the
+// ~5.4e8 samples the frame needs (itemised in chip_smoke.py): operations
+// bound it, at about 1.2-1.4 ms. What keeps a kernel of this shape far
+// from that is not arithmetic but latency: each sample's 8 scattered
+// taps depend on the plane's position, and a block that waits at a
+// barrier for its slowest warp has nothing else to issue.
+//
+// Design. One block of BR x BC fan pixels loops over the planes itself
+// (the TPU's sequential grid axis). Each pixel thread owns two fan rows
+// of one column, so it carries two independent sample-to-composite
+// chains whose latencies overlap, and keeps both pixels' 8 accumulators
+// and previous samples in registers. Every thread of the block runs the
+// same plane loop; there is no producer or consumer role. Per active
+// plane j, with j+1 and j+2 the next active planes:
+//   1. issue the cp.async copies of plane j+2's slab windows, block-wide
+//      (16-, 8- or 4-byte copies of contiguous, aligned window rows);
+//   2. sample plane j+1: 8 taps per sample from shared memory, where its
+//      windows (the voxel rows and columns the tile and its FD halo tap)
+//      were staged; the FD gradient's samples, halo included, go to a
+//      double-buffered tile;
+//   3. classify, shade and composite plane j from the tile published at
+//      the last barrier; steps 2 and 3 are independent, so the sampling's
+//      shared-memory latency overlaps the shading's arithmetic;
+//   4. cp.async.wait_all, then the plane's one barrier,
+//      __syncthreads_or(alive): it completes plane j+2's copy, publishes
+//      plane j+1's tile and takes the termination vote after plane j
+//      (the block stops where the plain version stops).
+// Consecutive planes mostly step one slab, so a slab window is copied to
+// cover its footprint on the plane that copies it and the next one; the
+// next plane reuses it (slab k0 + 1 becomes the next k0) instead of
+// copying it again. Four slab buffers of CR x CC voxels hold the windows
+// of two stages. A stage whose footprint does not fit them (a fan much
+// coarser than the volume) or whose columns are not contiguous (a view
+// along the volume's fastest axis) reads its taps from the grid instead;
+// the choice is per block and plane, from geometry, the same for every
+// thread. Before the loop the block computes its voxel footprint on
+// every plane of the schedule (kept in shared memory for the staging)
+// and tests it against the macrocells: each thread takes planes, one
+// ballot per 32 planes and one barrier for all. The FD halo (the rows
+// above and below the tile and the columns beside it, 80 samples) is
+// spread over all four warps: each takes 20 as a third sample, so no warp
+// samples more than another. Samples and shading carry no branch on
+// whether a pixel lies in the fan (positions are clamped, results
+// discarded), so each thread's three samples and two shading chains
+// overlap. Built with -fmad=false: the arithmetic rounds as the plain
+// version's does, and the two agree bit for bit.
 //
 // Work avoidance per block: a plane is skipped when every macrocell
 // under the block's voxel footprint (its extreme rows and columns, halo
@@ -33,27 +70,23 @@
 // and columns) has majorant <= 1.19e-7, which makes its opacity exactly
 // zero. Modes >= 1 also compute the plane before each active one (its
 // samples feed the axial difference). The block stops when no ray in it
-// has T > 1e-4 with its box exit still ahead (__syncthreads_or).
-//
-// What bounds it on an H100: arithmetic. At the headline frame (1024^3
-// bf16 volume, 1024 planes, 1352 x 2048 fan) the function must read the
-// 2.15 GB grid once and write an 88.6 MB result, about 0.67 ms at
-// 3.35 TB/s, and needs 81 (mode 0) to 178 (mode 2, FD gradient) f32
-// operations per sample (itemised in chip_smoke.py) on the 5.7e8 of the
-// fan's 2.84e9 samples that skipping and termination leave, 0.69 to
-// 1.51 ms at 67 TFLOP/s. This first version spends most of its time on
-// the per-sample 8-tap loads through L1 and the FD halo it recomputes;
-// slab windows in shared memory (TMA) are the next step.
+// has T > 1e-4 with its box exit still ahead.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define BR 8   // fan rows per block
 #define BC 32  // fan columns per block
-#define NT (BR * BC)
+#define WARPS (BR / 2)  // each thread: two fan rows of one column
+#define NT (WARPS * 32)
+#define NH (2 * (BR + BC))  // FD halo samples per plane
+#define NH_WARP (NH / WARPS)  // of them per warp
 #define MCELL 16
 #define N_SCALARS 72
 #define MAX_TAB 2048
+#define NBUF 4   // slab buffers: two stages of two slabs
+#define CR 24    // voxel rows a slab buffer holds
+#define CC 96    // voxel columns a slab buffer holds
 
 enum : int {
   S_LO1 = 0, S_EX1, S_LO2, S_EX2, S_EW1, S_EW2, S_DW1, S_DW2, S_HALF, S_DZ,
@@ -88,6 +121,12 @@ struct Params {
   int term;
   float* out;  // (8, hi, wi)
   int* block_planes;  // per-block count of composited planes, or null
+  int* pixel_samples;  // (hi, wi) samples needed per pixel (counting variant)
+  int* stage_counts;  // (2,) planes sampled staged / direct (counting variant)
+  int copy_bytes;  // cp.async size for window rows (16, 8, 4), 0: direct only
+  int n_words;  // words of per-plane bits: n_slices / 32 + 2
+  int fp_off;  // byte offsets in dynamic shared memory: per-plane windows,
+  int ring_off;  // slab buffers
 };
 
 struct bf16_t {
@@ -95,29 +134,59 @@ struct bf16_t {
 };
 
 template <typename T>
-__device__ __forceinline__ float load_voxel(const T* p);
+__device__ __forceinline__ float to_float(T v);
 template <>
-__device__ __forceinline__ float load_voxel<float>(const float* p) {
-  return __ldg(p);
+__device__ __forceinline__ float to_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float to_float<bf16_t>(bf16_t v) {
+  return __uint_as_float(static_cast<unsigned int>(v.bits) << 16);
+}
+template <>
+__device__ __forceinline__ float to_float<unsigned char>(unsigned char v) {
+  return static_cast<float>(v);
+}
+template <>
+__device__ __forceinline__ float to_float<unsigned short>(unsigned short v) {
+  return static_cast<float>(v);
+}
+
+template <typename T>
+__device__ __forceinline__ float load_voxel(const T* p) {
+  return to_float<T>(__ldg(p));
 }
 template <>
 __device__ __forceinline__ float load_voxel<bf16_t>(const bf16_t* p) {
-  unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned int>(b) << 16);
-}
-template <>
-__device__ __forceinline__ float load_voxel<unsigned char>(
-    const unsigned char* p) {
-  return static_cast<float>(__ldg(p));
-}
-template <>
-__device__ __forceinline__ float load_voxel<unsigned short>(
-    const unsigned short* p) {
-  return static_cast<float>(__ldg(p));
+  bf16_t v;
+  v.bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return to_float<bf16_t>(v);
 }
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src,
+                                         int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(dst), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Slab entry/exit parameters of o + t*d vs [lo, lo+ext] (|d| < 1e-12
@@ -146,26 +215,54 @@ __device__ __forceinline__ float vc_of(const float* sc, float p, float lam,
   return clampf((x1 - sc[S_LO1]) / sc[S_EX1] * (float)nc - 0.5f, 0.0f,
                 (float)nc - 1.0f);
 }
+__device__ __forceinline__ float lam_of(const float* sc, int j) {
+  const float z_rel = ((float)j + sc[S_OFF]) * sc[S_DZ];
+  return z_rel * sc[S_DLAM] + sc[S_LAM0];
+}
+
+// Taps straight from the grid: slab pointers and element strides.
+template <typename T>
+struct DirectTaps {
+  const T* s0;
+  const T* s1;
+  long long sr, sc;
+  __device__ __forceinline__ float v(float gz, float fz, int ir, int ic)
+      const {
+    const long long o = ir * sr + ic * sc;
+    return load_voxel(s0 + o) * gz + load_voxel(s1 + o) * fz;
+  }
+};
+
+// Taps from the two slabs' staged windows (each with its own origin).
+template <typename T>
+struct StagedTaps {
+  const T* w0;  // window of slab k0, first voxel at (r0, c0)
+  const T* w1;  // window of slab k0 + 1, first voxel at (r1, c1)
+  int r0, c0, r1, c1;
+  __device__ __forceinline__ float v(float gz, float fz, int ir, int ic)
+      const {
+    return to_float<T>(w0[(ir - r0) * CC + (ic - c0)]) * gz
+           + to_float<T>(w1[(ir - r1) * CC + (ic - c1)]) * fz;
+  }
+};
 
 // Bilinear sample of the z-lerped plane at (vr, vc), storage scale gs
 // folded into the row weights. GRAD also returns the analytic
 // derivatives along columns (g1) and rows (g2), zero on a node.
-template <typename T, bool GRAD>
-__device__ __forceinline__ float sample(const Params& P, const T* s0,
-                                        const T* s1, float fz, float vr,
-                                        float vc, float gs, float* g1,
-                                        float* g2) {
+template <bool GRAD, typename Taps>
+__device__ __forceinline__ float sample(const Taps& tp, int nr, int nc,
+                                        float fz, float vr, float vc,
+                                        float gs, float* g1, float* g2) {
   const int ir0 = (int)floorf(vr);
   const int ic0 = (int)floorf(vc);
   const float fr = vr - (float)ir0;
   const float fc = vc - (float)ic0;
-  const long long r0 = ir0 * P.sr, r1 = min(ir0 + 1, P.nr - 1) * P.sr;
-  const long long c0 = ic0 * P.sc, c1 = min(ic0 + 1, P.nc - 1) * P.sc;
+  const int ir1 = min(ir0 + 1, nr - 1), ic1 = min(ic0 + 1, nc - 1);
   const float gz = 1.0f - fz;
-  const float v00 = load_voxel(s0 + r0 + c0) * gz + load_voxel(s1 + r0 + c0) * fz;
-  const float v01 = load_voxel(s0 + r0 + c1) * gz + load_voxel(s1 + r0 + c1) * fz;
-  const float v10 = load_voxel(s0 + r1 + c0) * gz + load_voxel(s1 + r1 + c0) * fz;
-  const float v11 = load_voxel(s0 + r1 + c1) * gz + load_voxel(s1 + r1 + c1) * fz;
+  const float v00 = tp.v(gz, fz, ir0, ic0);
+  const float v01 = tp.v(gz, fz, ir0, ic1);
+  const float v10 = tp.v(gz, fz, ir1, ic0);
+  const float v11 = tp.v(gz, fz, ir1, ic1);
   const float wr0 = (1.0f - fr) * gs;
   const float wr1 = fr * gs;
   const float t0 = v00 * wr0 + v10 * wr1;
@@ -179,162 +276,417 @@ __device__ __forceinline__ float sample(const Params& P, const T* s0,
   return t0 * (1.0f - fc) + t1 * fc;
 }
 
-template <typename T, int MODE, bool FD>
-__global__ void __launch_bounds__(NT) swslice_kernel(Params P) {
-  extern __shared__ float4 tab[];  // (n_tab,) rgba
-  __shared__ float sc[N_SCALARS];
-  __shared__ float tile[BR + 2][BC + 2];  // FD samples + one-sample halo
+// Voxel rows [r_lo, r_hi] and columns [c_lo, c_hi] that the block's
+// samples of the plane at lam tap (positions are monotone along fan rows
+// and columns, so the extreme rows and columns bound them).
+struct Footprint {
+  int r_lo, r_hi, c_lo, c_hi;
+};
 
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BC + tx;
+__device__ __forceinline__ Footprint footprint(const float* sc, float lam,
+                                               float qa, float qb, float pa,
+                                               float pb, int nr, int nc,
+                                               bool ortho) {
+  const float ra = vr_of(sc, qa, lam, nr, ortho);
+  const float rb = vr_of(sc, qb, lam, nr, ortho);
+  const float ca = vc_of(sc, pa, lam, nc, ortho);
+  const float cb = vc_of(sc, pb, lam, nc, ortho);
+  Footprint f;
+  f.r_lo = (int)floorf(fminf(ra, rb));
+  f.r_hi = min((int)floorf(fmaxf(ra, rb)) + 1, nr - 1);
+  f.c_lo = (int)floorf(fminf(ca, cb));
+  f.c_hi = min((int)floorf(fmaxf(ca, cb)) + 1, nc - 1);
+  return f;
+}
+
+// Resident blocks per SM that a variant's registers must allow (measured
+// on the H100, PERF.md): five, except the diffuse FD variant, whose
+// direct taps (views along the grid's fastest axis) need the registers of
+// four.
+constexpr int min_blocks(int mode, bool fd) {
+  return mode == 1 && fd ? 4 : 5;
+}
+
+template <typename T, int MODE, bool FD, bool COUNT>
+__global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
+    swslice_kernel(Params P) {
+  constexpr int BUF = CR * CC;  // voxels per slab buffer
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float4* tab = reinterpret_cast<float4*>(dyn);  // (n_tab,) rgba
+  // per plane: macrocell bits, whether its window covers the next plane
+  // too, and the window (rows, aligned columns; x < 0: taps from the grid)
+  unsigned* raw = reinterpret_cast<unsigned*>(dyn + 16 * P.n_tab);
+  unsigned* cov = raw + P.n_words;
+  short4* wins = reinterpret_cast<short4*>(dyn + P.fp_off);
+  int* k0s = reinterpret_cast<int*>(wins + P.n_slices);  // the schedule
+  T* ring = reinterpret_cast<T*>(dyn + P.ring_off);  // NBUF windows
+  __shared__ float sc[N_SCALARS];
+  __shared__ float tile[FD ? 2 : 1][BR + 2][BC + 2];  // FD samples + halo
+  // per stage (two in flight): {buffer of slab k0, of slab k0 + 1, plane,
+  // flags} and the two windows' first {row, column}; flags: 1 direct,
+  // 2 / 4 slab k0 / k0 + 1 copied by this stage (not reused)
+  __shared__ int4 stage_meta[2][2];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = warp, tx = lane;
   const int r_first = blockIdx.y * BR, c_block = blockIdx.x * BC;
-  const int row = r_first + ty, col = c_block + tx;
+  const int col = c_block + tx;
   for (int i = tid; i < N_SCALARS; i += NT) sc[i] = P.scal[i];
   for (int i = tid; i < P.n_tab; i += NT)
     tab[i] = make_float4(P.tab[4 * i], P.tab[4 * i + 1], P.tab[4 * i + 2],
                          P.tab[4 * i + 3]);
   if (FD)
-    for (int i = tid; i < (BR + 2) * (BC + 2); i += NT)
-      (&tile[0][0])[i] = 0.0f;
+    for (int i = tid; i < 2 * (BR + 2) * (BC + 2); i += NT)
+      (&tile[0][0][0])[i] = 0.0f;
   __syncthreads();
 
+  const int n = P.n_slices;
   const bool ortho = sc[S_ORTHO] > 0.5f;
   const bool col_ok = col < P.wi;
-  const bool live = row < P.hi && col_ok;
   const float p = P.pg[min(col, P.wi - 1)];
-  const float q = P.qg[min(row, P.hi - 1)];
   const float gs = sc[S_GS];
-
-  // slice-independent ray geometry: clip-box interval and speed
-  float l1, h1, l2, h2;
-  axis_rng(ortho ? p : sc[S_EW1], ortho ? sc[S_DW1] : p, sc[S_CLO1],
-           sc[S_CEX1], l1, h1);
-  axis_rng(ortho ? q : sc[S_EW2], ortho ? sc[S_DW2] : q, sc[S_CLO2],
-           sc[S_CEX2], l2, h2);
-  const float l_in = fmaxf(fmaxf(fmaxf(l1, l2), sc[S_CLA]), 0.0f);
-  const float exit_t = fminf(fminf(h1, h2), sc[S_CHA]);
-  const float l_out = fmaxf(exit_t, l_in);
-  const float speed = ortho ? 1.0f : sqrtf(p * p + q * q + 1.0f);
-  // the FD path samples rows on the uniform lattice q0 + r*dq, which
-  // extends past the fan for the halo rows
-  const float q_smp = FD ? sc[S_QLO] + (float)row * sc[S_DQ] : q;
-
-  // the block's extreme sample rows and columns (skipping footprint)
+  // the block's extreme sample rows and columns (skipping footprint and
+  // slab windows): with the FD gradient the rows lie on the uniform
+  // lattice q0 + r*dq, which extends past the fan for the halo rows
   const int r_last = min(r_first + BR, P.hi) - 1;
   const int c_first = FD ? max(c_block - 1, 0) : c_block;
   const int c_last = min(min(c_block + BC, P.wi) - 1 + (FD ? 1 : 0),
                          P.wi - 1);
-  const float qa = FD ? sc[S_QLO] + (float)(r_first - 1) * sc[S_DQ]
-                      : P.qg[r_first];
-  const float qb = FD ? sc[S_QLO] + (float)(r_last + 1) * sc[S_DQ]
-                      : P.qg[r_last];
-  const float pa = P.pg[c_first], pb = P.pg[c_last];
 
-  // does any macrocell under the block's footprint of plane j carry
-  // opacity? (all threads call it: it ends in a barrier)
-  auto block_active = [&](int j) -> bool {
-    const float z = ((float)j + sc[S_OFF]) * sc[S_DZ];
-    const float lam = z * sc[S_DLAM] + sc[S_LAM0];
-    const float ra = vr_of(sc, qa, lam, P.nr, ortho);
-    const float rb = vr_of(sc, qb, lam, P.nr, ortho);
-    const float ca = vc_of(sc, pa, lam, P.nc, ortho);
-    const float cb = vc_of(sc, pb, lam, P.nc, ortho);
-    const int r0 = max((int)floorf(fminf(ra, rb)) - 1, 0) / MCELL;
-    const int r1 = min((int)floorf(fmaxf(ra, rb)) + 2, P.nr - 1) / MCELL;
-    const int c0 = max((int)floorf(fminf(ca, cb)) - 1, 0) / MCELL;
-    const int c1 = min((int)floorf(fmaxf(ca, cb)) + 2, P.nc - 1) / MCELL;
-    const int k = P.k0[j];
-    const int sa = P.flip ? P.na - 1 - k : k;
-    const int sb = P.flip ? P.na - 2 - k : k + 1;
-    const int a0 = min(sa, sb) / MCELL, a1 = max(sa, sb) / MCELL;
-    const int n_r = r1 - r0 + 1, n_c = c1 - c0 + 1;
-    const int n = (a1 - a0 + 1) * n_r * n_c;
-    int found = 0;
-    for (int i = tid; i < n && !found; i += NT) {
-      const int c = c0 + i % n_c, t = i / n_c;
-      const int r = r0 + t % n_r, a = a0 + t / n_r;
-      found = __ldg(P.maj + ((long long)a * P.mr + r) * P.mc + c) > 1.19e-7f;
+  // ---- per plane, up front: the block's voxel footprint, the slab
+  // window that holds it (with the next plane's, where that fits), and
+  // the macrocell skip test (each thread takes planes; a ballot per 32) --
+  const bool skip = P.maj != nullptr;
+  const T* grid = static_cast<const T*>(P.grid);
+  const int g_bytes = P.copy_bytes;
+  const int per_chunk = max(g_bytes / (int)sizeof(T), 1);  // voxels/copy
+  {
+    const float qa = FD ? sc[S_QLO] + (float)(r_first - 1) * sc[S_DQ]
+                        : P.qg[r_first];
+    const float qb = FD ? sc[S_QLO] + (float)(r_last + 1) * sc[S_DQ]
+                        : P.qg[r_last];
+    const float pa = P.pg[c_first], pb = P.pg[c_last];
+    for (int j0 = 0; j0 < 32 * P.n_words; j0 += NT) {
+      const int j = j0 + tid;
+      int found = 0, covers = 0;
+      if (j < n) {
+        const Footprint f = footprint(sc, lam_of(sc, j), qa, qb, pa, pb,
+                                      P.nr, P.nc, ortho);
+        Footprint u = f;
+        if (j + 1 < n) {
+          const Footprint g = footprint(sc, lam_of(sc, j + 1), qa, qb, pa,
+                                        pb, P.nr, P.nc, ortho);
+          u.r_lo = min(f.r_lo, g.r_lo);
+          u.r_hi = max(f.r_hi, g.r_hi);
+          u.c_lo = min(f.c_lo, g.c_lo);
+          u.c_hi = max(f.c_hi, g.c_hi);
+        }
+        short4 w = make_short4(-1, -1, -1, -1);
+        for (int t = 0; t < 2 && g_bytes > 0 && w.x < 0; ++t) {
+          const Footprint e = t == 0 ? u : f;
+          const int c0 = e.c_lo / per_chunk * per_chunk;
+          const int c1 = (e.c_hi / per_chunk + 1) * per_chunk - 1;
+          if (e.r_hi - e.r_lo < CR && c1 - c0 < CC) {
+            w = make_short4(e.r_lo, e.r_hi, c0, c1);
+            covers = t == 0 && j + 1 < n;
+          }
+        }
+        wins[j] = w;
+        const int k = P.k0[j];
+        k0s[j] = k;
+        if (skip) {
+          const int r0 = max(f.r_lo - 1, 0) / MCELL;
+          const int r1 = min(f.r_hi + 1, P.nr - 1) / MCELL;
+          const int c0 = max(f.c_lo - 1, 0) / MCELL;
+          const int c1 = min(f.c_hi + 1, P.nc - 1) / MCELL;
+          const int s_a = P.flip ? P.na - 1 - k : k;
+          const int s_b = P.flip ? P.na - 2 - k : k + 1;
+          const int a0 = min(s_a, s_b) / MCELL, a1 = max(s_a, s_b) / MCELL;
+          for (int a = a0; a <= a1 && !found; ++a)
+            for (int r = r0; r <= r1 && !found; ++r)
+              for (int c = c0; c <= c1 && !found; ++c)
+                found = __ldg(P.maj + ((long long)a * P.mr + r) * P.mc + c)
+                        > 1.19e-7f;
+        }
+      }
+      const unsigned bits = __ballot_sync(0xffffffffu, found);
+      const unsigned cbits = __ballot_sync(0xffffffffu, covers);
+      if (lane == 0 && j0 / 32 + warp < P.n_words) {
+        raw[j0 / 32 + warp] = bits;  // raw[n / 32 + 1] stays 0
+        cov[j0 / 32 + warp] = cbits;
+      }
     }
-    return __syncthreads_or(found) != 0;
+  }
+  __syncthreads();
+  // the first plane after j to composite: with skipping, one whose
+  // footprint holds opacity or (modes >= 1) precedes one that does
+  auto next_active = [&](int j) -> int {
+    int i = j + 1;
+    if (!skip) return min(i, n);
+    while (i < n) {
+      const int w = i >> 5;
+      unsigned word = raw[w];
+      if (MODE >= 1) word |= (word >> 1) | (raw[w + 1] << 31);
+      word >>= (i & 31);
+      if (word) return min(i + __ffs(word) - 1, n);
+      i = (w + 1) << 5;
+    }
+    return n;
   };
 
-  const T* grid = static_cast<const T*>(P.grid);
-  float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float trans = 1.0f, prev = 0.0f;
-  int jpos = 0;
-  bool raw_next = (P.maj != nullptr && MODE >= 1) ? block_active(0) : false;
-
-  for (int j = 0; j < P.n_slices; ++j) {
-    if (P.maj != nullptr) {
-      bool act;
-      if (MODE == 0) {
-        act = block_active(j);
-      } else {
-        const bool raw_j = raw_next;
-        raw_next = (j + 1 < P.n_slices) ? block_active(j + 1) : false;
-        act = raw_j || raw_next;
+  // ---- slab staging ---------------------------------------------------
+  // Stage plane j into stage slot `slot`. The stage in slot `keep` (none:
+  // keep < 0) holds the plane before: where it copied a slab that plane j
+  // needs with a window that covers plane j too, that buffer is reused,
+  // else the slab is copied into a free buffer with plane j's window.
+  // Every thread computes the same plan from the per-plane windows and the
+  // kept stage's record; thread 0 records it, all issue the copies. The
+  // records are read after the next barrier.
+  auto stage = [&](int j, int slot, int keep) {
+    const short4 w = wins[j];
+    int4 rec0 = make_int4(-1, -1, j, 1), rec1 = make_int4(0, 0, 0, 0);
+    if (w.x >= 0) {
+      int4 km0 = make_int4(-1, -1, -1, 1), km1 = make_int4(0, 0, 0, 0);
+      if (keep >= 0) {
+        km0 = stage_meta[keep][0];
+        km1 = stage_meta[keep][1];
       }
-      if (!act) continue;  // block-uniform
+      const bool kept = !(km0.w & 1);
+      const bool next = kept && km0.z + 1 == j
+                        && ((cov[km0.z >> 5] >> (km0.z & 31)) & 1);
+      const int dk = next ? k0s[j] - k0s[km0.z] : -2;  // slab step
+      int b[2], o_r[2], o_c[2];
+      bool fresh[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        // the kept stage's buffer of this slab, copied there (not reused)
+        const int from = dk + s;  // 0: its slab k0, 1: its slab k0 + 1
+        const bool ok = (from == 0 && (km0.w & 2))
+                        || (from == 1 && (km0.w & 4));
+        fresh[s] = !ok;
+        if (ok) {
+          b[s] = from == 0 ? km0.x : km0.y;
+          o_r[s] = from == 0 ? km1.x : km1.z;
+          o_c[s] = from == 0 ? km1.y : km1.w;
+        } else {
+          int nb = 0;
+          while ((kept && (nb == km0.x || nb == km0.y))
+                 || (s == 1 && nb == b[0]))
+            ++nb;
+          b[s] = nb;
+          o_r[s] = w.x;
+          o_c[s] = w.z;
+        }
+      }
+      const int chunks = (w.w - w.z + 1) / per_chunk;
+      const int total = (w.y - w.x + 1) * chunks;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (!fresh[s]) continue;
+        const T* src = grid + (long long)(k0s[j] + s) * P.sa
+                       + (long long)w.x * P.sr + w.z;
+        const unsigned dst = static_cast<unsigned>(
+            __cvta_generic_to_shared(ring + b[s] * BUF));
+        for (int i = tid; i < total; i += NT) {
+          const int r = i / chunks, c = (i - r * chunks) * per_chunk;
+          cp_async(dst + (unsigned)((r * CC + c) * sizeof(T)),
+                   src + r * P.sr + c, g_bytes);
+        }
+      }
+      rec0 = make_int4(b[0], b[1], j,
+                       (fresh[0] ? 2 : 0) | (fresh[1] ? 4 : 0));
+      rec1 = make_int4(o_r[0], o_c[0], o_r[1], o_c[1]);
     }
-    const float z_rel = ((float)j + sc[S_OFF]) * sc[S_DZ];
+    cp_async_commit();
+    if (tid == 0) {
+      stage_meta[slot][0] = rec0;
+      stage_meta[slot][1] = rec1;
+    }
+  };
+
+  // ---- per pixel (two fan rows per pixel thread: ty and ty + 4) -------
+  float q[2], l_in[2], l_out[2], exit_t[2], speed[2];
+  bool live[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = r_first + ty + WARPS * u;
+    live[u] = row < P.hi && col_ok;
+    q[u] = P.qg[min(row, P.hi - 1)];
+    // slice-independent ray geometry: clip-box interval and speed
+    float l1, h1, l2, h2;
+    axis_rng(ortho ? p : sc[S_EW1], ortho ? sc[S_DW1] : p, sc[S_CLO1],
+             sc[S_CEX1], l1, h1);
+    axis_rng(ortho ? q[u] : sc[S_EW2], ortho ? sc[S_DW2] : q[u], sc[S_CLO2],
+             sc[S_CEX2], l2, h2);
+    l_in[u] = fmaxf(fmaxf(fmaxf(l1, l2), sc[S_CLA]), 0.0f);
+    exit_t[u] = fminf(fminf(h1, h2), sc[S_CHA]);
+    l_out[u] = fmaxf(exit_t[u], l_in[u]);
+    speed[u] = ortho ? 1.0f : sqrtf(p * p + q[u] * q[u] + 1.0f);
+  }
+
+  float acc[2][7], trans[2] = {1.0f, 1.0f}, prev[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int c = 0; c < 7; ++c) acc[u][c] = 0.0f;
+  int jpos = 0, n_need[2] = {0, 0}, n_staged = 0, n_direct = 0;
+  bool last_need[2] = {false, false};
+
+  // Sample plane jj from the stage in slot `ss` into tile slot `ss` (FD)
+  // or into smp/g1/g2. Positions outside the fan are clamped to the
+  // block's footprint and their samples replaced by 0 (they only feed
+  // pixels outside the fan), so the samples carry no branch and their
+  // taps overlap.
+  auto sample_plane = [&](int jj, int ss, float* smp, float* g1,
+                          float* g2) {
+    const float z_rel = ((float)jj + sc[S_OFF]) * sc[S_DZ];
     const float lam = z_rel * sc[S_DLAM] + sc[S_LAM0];
     const float cax = clampf((z_rel - sc[S_SMP0]) * sc[S_SMPSC] - 0.5f, 0.0f,
                              sc[S_NA] - 1.0f);
     const float fz = cax - clampf(floorf(cax), 0.0f, sc[S_NA] - 2.0f);
-    const T* s0 = grid + (long long)P.k0[j] * P.sa;
-    const T* s1 = s0 + P.sa;
-    const float x1 = ortho ? p + sc[S_DW1] * lam : sc[S_EW1] + p * lam;
-    const float x2 = ortho ? q_smp + sc[S_DW2] * lam : sc[S_EW2] + q_smp * lam;
-    const float vc = vc_of(sc, p, lam, P.nc, ortho);
-    const float vr = vr_of(sc, q_smp, lam, P.nr, ortho);
-
-    float smp = 0.0f, g1 = 0.0f, g2 = 0.0f;
+    const int4 sm0 = stage_meta[ss][0];
+    const bool direct = sm0.w & 1;
+    n_staged += direct ? 0 : 1;
+    n_direct += direct ? 1 : 0;
+    DirectTaps<T> dt;
+    StagedTaps<T> st;
+    if (direct) {
+      dt.s0 = grid + (long long)k0s[jj] * P.sa;
+      dt.s1 = dt.s0 + P.sa;
+      dt.sr = P.sr;
+      dt.sc = P.sc;
+    } else {
+      const int4 sm1 = stage_meta[ss][1];
+      st.w0 = ring + sm0.x * BUF;
+      st.w1 = ring + sm0.y * BUF;
+      st.r0 = sm1.x;
+      st.c0 = sm1.y;
+      st.r1 = sm1.z;
+      st.c1 = sm1.w;
+    }
+    // FD sample at fan row hr (on the row lattice) and fan column pc
+    auto fd_sample = [&](int hr, float pc) -> float {
+      const float vr = vr_of(sc, sc[S_QLO] + (float)hr * sc[S_DQ], lam,
+                             P.nr, ortho);
+      const float vc = vc_of(sc, pc, lam, P.nc, ortho);
+      return direct ? sample<false>(dt, P.nr, P.nc, fz, vr, vc, gs, nullptr,
+                                    nullptr)
+                    : sample<false>(st, P.nr, P.nc, fz, vr, vc, gs, nullptr,
+                                    nullptr);
+    };
     if (FD) {
-      if (col_ok)
-        smp = sample<T, false>(P, s0, s1, fz, vr, vc, gs, nullptr, nullptr);
-      tile[ty + 1][tx + 1] = smp;
-      if (tid < 2 * (BR + BC)) {  // one halo sample
-        int hr, hc, ti, tj;
-        if (tid < BC) {
-          hr = r_first - 1; hc = c_block + tid; ti = 0; tj = tid + 1;
-        } else if (tid < 2 * BC) {
-          hr = r_first + BR; hc = c_block + tid - BC; ti = BR + 1;
-          tj = tid - BC + 1;
-        } else if (tid < 2 * BC + BR) {
-          hr = r_first + tid - 2 * BC; hc = c_block - 1;
-          ti = tid - 2 * BC + 1; tj = 0;
-        } else {
-          hr = r_first + tid - 2 * BC - BR; hc = c_block + BC;
-          ti = tid - 2 * BC - BR + 1; tj = BC + 1;
-        }
-        float hv = 0.0f;
-        if (hc >= 0 && hc < P.wi) {
-          const float hq = sc[S_QLO] + (float)hr * sc[S_DQ];
-          hv = sample<T, false>(P, s0, s1, fz,
-                                vr_of(sc, hq, lam, P.nr, ortho),
-                                vc_of(sc, P.pg[hc], lam, P.nc, ortho), gs,
-                                nullptr, nullptr);
-        }
-        tile[ti][tj] = hv;
+      float* tl = &tile[ss][0][0];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int row = r_first + ty + WARPS * u;
+        const float v = fd_sample(min(row, r_last + 1), p);
+        tl[(ty + WARPS * u + 1) * (BC + 2) + tx + 1] =
+            col_ok && row <= r_last + 1 ? v : 0.0f;
       }
-      __syncthreads();
-      const float lamf = ortho ? 1.0f : lam;
-      const float fwd = tile[ty + 1][tx + 2] - smp;
-      const float bwd = smp - tile[ty + 1][tx];
-      g1 = (col == 0 ? fwd : (col >= P.wi - 1 ? bwd : 0.5f * (fwd + bwd)))
-           / (sc[S_DP] * lamf);
-      g2 = (tile[ty + 2][tx + 1] - tile[ty][tx + 1])
-           * (0.5f / (sc[S_DQ] * lamf));
-    } else if (live) {
-      smp = sample<T, (MODE >= 1)>(P, s0, s1, fz, vr, vc, gs, &g1, &g2);
-      if (MODE >= 1) {
-        g1 *= (float)P.nc / sc[S_EX1];
-        g2 *= (float)P.nr / sc[S_EX2];
+      // the halo (rows above and below the tile, columns beside it): a
+      // third sample for NH_WARP lanes of every warp
+      const int i = min(warp * NH_WARP + lane, NH - 1);
+      int hr, hc, ti;
+      if (i < 2 * BC) {
+        const bool top = i < BC;
+        hr = top ? r_first - 1 : r_first + BR;
+        hc = c_block + (i & (BC - 1));
+        ti = (top ? 0 : BR + 1) * (BC + 2) + (i & (BC - 1)) + 1;
+      } else {
+        const bool left = i < 2 * BC + BR;
+        const int rr = (i - 2 * BC) & (BR - 1);
+        hr = r_first + rr;
+        hc = left ? c_block - 1 : c_block + BC;
+        ti = (rr + 1) * (BC + 2) + (left ? 0 : BC + 1);
+      }
+      const float v = fd_sample(min(hr, r_last + 1),
+                                P.pg[min(max(hc, c_first), c_last)]);
+      if (lane < NH_WARP)
+        tl[ti] = hc >= 0 && hc < P.wi && hr <= r_last + 1 ? v : 0.0f;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float vr = vr_of(sc, q[u], lam, P.nr, ortho);
+        const float vc = vc_of(sc, p, lam, P.nc, ortho);
+        constexpr bool G = MODE >= 1;
+        smp[u] = direct ? sample<G>(dt, P.nr, P.nc, fz, vr, vc, gs, &g1[u],
+                                    &g2[u])
+                        : sample<G>(st, P.nr, P.nc, fz, vr, vc, gs, &g1[u],
+                                    &g2[u]);
+        if (MODE >= 1) {
+          g1[u] *= (float)P.nc / sc[S_EX1];
+          g2[u] *= (float)P.nr / sc[S_EX2];
+        }
       }
     }
+  };
 
-    if (live) {
+  // The pipeline: plane j's slabs are staged two planes ahead and its
+  // samples taken one plane ahead (prologue: the first two planes).
+  int j = next_active(-1);
+  int jn = j < n ? next_active(j) : n;
+  float smp_c[2] = {0.0f, 0.0f}, g1_c[2] = {0.0f, 0.0f};
+  float g2_c[2] = {0.0f, 0.0f};  // plane j's samples (without FD)
+  if (j < n) {
+    stage(j, 0, -1);
+    __syncthreads();  // the first stage's record, for the second's reuse
+    if (jn < n) {
+      stage(jn, 1, 0);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    sample_plane(j, 0, smp_c, g1_c, g2_c);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  for (int it = 0; j < n; ++it) {
+    const int slot = it & 1;  // plane j's stage and tile; jn's: slot ^ 1
+    // 1. copy the stage of the plane after next (plane j's buffers are
+    // free: its samples are taken)
+    const int jnn = jn < n ? next_active(jn) : n;
+    if (jnn < n) stage(jnn, slot, slot ^ 1);
+    // 2. sample the next plane
+    float smp_n[2] = {0.0f, 0.0f}, g1_n[2] = {0.0f, 0.0f};
+    float g2_n[2] = {0.0f, 0.0f};
+    if (jn < n) sample_plane(jn, slot ^ 1, smp_n, g1_n, g2_n);
+    const float z_rel = ((float)j + sc[S_OFF]) * sc[S_DZ];
+    const float lam = z_rel * sc[S_DLAM] + sc[S_LAM0];
+    float smp[2], g1[2], g2[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      smp[u] = FD ? tile[slot][ty + WARPS * u + 1][tx + 1] : smp_c[u];
+      g1[u] = g1_c[u];
+      g2[u] = g2_c[u];
+    }
+
+    // 3. classify, shade, composite plane j
+    int alive = 0;  // a ray of the block still to composite
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      // computed for every pixel slot (no branch, so the two chains
+      // overlap); only live pixels keep the result
+      const int tr = ty + WARPS * u;  // tile row
+      const float x1 = ortho ? p + sc[S_DW1] * lam : sc[S_EW1] + p * lam;
+      const float q_smp = FD ? sc[S_QLO] + (float)(r_first + tr) * sc[S_DQ]
+                             : q[u];
+      const float x2 = ortho ? q_smp + sc[S_DW2] * lam
+                             : sc[S_EW2] + q_smp * lam;
+      if (FD && MODE >= 1) {
+        const float lamf = ortho ? 1.0f : lam;
+        const float fwd = tile[slot][tr + 1][tx + 2] - smp[u];
+        const float bwd = smp[u] - tile[slot][tr + 1][tx];
+        g1[u] = (col == 0 ? fwd
+                          : (col >= P.wi - 1 ? bwd : 0.5f * (fwd + bwd)))
+                / (sc[S_DP] * lamf);
+        g2[u] = (tile[slot][tr + 2][tx + 1] - tile[slot][tr][tx + 1])
+                * (0.5f / (sc[S_DQ] * lamf));
+      }
       // classify: two-tap nodal lookup
-      const float v = clampf((smp - sc[S_VLO]) * sc[S_VSCALE], 0.0f, 1.0f);
+      const float v = clampf((smp[u] - sc[S_VLO]) * sc[S_VSCALE], 0.0f,
+                             1.0f);
       const float cc = v * (float)(P.n_tab - 1);
       const float i0f = clampf(floorf(cc), 0.0f, (float)(P.n_tab - 1));
       const float f = cc - i0f;
@@ -347,23 +699,29 @@ __global__ void __launch_bounds__(NT) swslice_kernel(Params P) {
       const float a_raw = lo.w * (1.0f - f) + up.w * f;
 
       // opacity correction over the exact plane/ray overlap
-      const float seg_lo = fmaxf(lam - sc[S_HALF], l_in);
-      const float seg_hi = fminf(lam + sc[S_HALF], l_out);
-      const float dt_w = fmaxf(seg_hi - seg_lo, 0.0f) * speed;
+      const float seg_lo = fmaxf(lam - sc[S_HALF], l_in[u]);
+      const float seg_hi = fminf(lam + sc[S_HALF], l_out[u]);
+      const float dt_w = fmaxf(seg_hi - seg_lo, 0.0f) * speed[u];
       const float kk = sc[S_BASE] * dt_w;
       const float a_c = clampf(a_raw, 0.0f, 1.0f - 1e-7f);
       float a = clampf(1.0f - expf(kk * log1pf(-a_c)), 0.0f, 1.0f);
       if (fabsf(kk - 1.0f) < 1e-7f) a = clampf(a_raw, 0.0f, 1.0f);
       if (!(dt_w > 0.0f)) a = 0.0f;
       a = fminf(a, 1.0f - 1e-6f);
+      if (COUNT && live[u]) {  // the samples the function needs (bound)
+        const bool need = trans[u] > 1e-4f && a > 0.0f;
+        n_need[u] += need ? 1 : 0;
+        if (MODE >= 1 && need && jpos > 0 && !last_need[u]) ++n_need[u];
+        last_need[u] = need;
+      }
 
       float nrm[3] = {0.0f, 0.0f, 0.0f};
       if (MODE >= 1) {
-        const float ds = jpos > 0 ? (smp - prev) / sc[S_DZDLAM] : 0.0f;
+        const float ds = jpos > 0 ? (smp[u] - prev[u]) / sc[S_DZDLAM] : 0.0f;
         const float k1 = ortho ? sc[S_K1O] : p;
-        const float k2 = ortho ? sc[S_K2O] : q;
-        const float ga = (ds - g1 * k1 - g2 * k2) * sc[S_INVDA];
-        const float n1 = -g1, n2 = -g2, na = -ga;
+        const float k2 = ortho ? sc[S_K2O] : q[u];
+        const float ga = (ds - g1[u] * k1 - g2[u] * k2) * sc[S_INVDA];
+        const float n1 = -g1[u], n2 = -g2[u], na = -ga;
         const float inv = rsqrtf(n1 * n1 + n2 * n2 + na * na + 1e-12f);
         float total =
             fabsf(sc[S_LD1] * n1 + sc[S_LD2] * n2 + sc[S_LDA] * na) * inv;
@@ -408,52 +766,109 @@ __global__ void __launch_bounds__(NT) swslice_kernel(Params P) {
           nrm[r] = clampf(w[0] * nu1 + w[1] * nu2 + w[2] * nua, 0.0f, 1.0f);
         }
       }
-      const float aw = trans * a;
-      acc[0] += aw * rgb[0];
-      acc[1] += aw * rgb[1];
-      acc[2] += aw * rgb[2];
-      acc[3] += aw * nrm[0];
-      acc[4] += aw * nrm[1];
-      acc[5] += aw * nrm[2];
-      acc[6] += aw * (lam * speed);
-      trans = trans * (1.0f - a);
-      prev = smp;
+      const float aw = trans[u] * a;
+      const float add[7] = {aw * rgb[0], aw * rgb[1], aw * rgb[2],
+                            aw * nrm[0], aw * nrm[1], aw * nrm[2],
+                            aw * (lam * speed[u])};
+#pragma unroll
+      for (int c = 0; c < 7; ++c)
+        acc[u][c] = live[u] ? acc[u][c] + add[c] : acc[u][c];
+      trans[u] = live[u] ? trans[u] * (1.0f - a) : trans[u];
+      prev[u] = smp[u];
+      alive |= live[u] && trans[u] > 1e-4f && exit_t[u] > lam;
     }
     ++jpos;
-    if (P.term) {
-      const int alive = live && trans > 1e-4f && exit_t > lam;
-      if (!__syncthreads_or(alive)) break;  // block-uniform
-    } else if (FD) {
-      __syncthreads();  // the next plane rewrites the tile
+    // 4. the plane's one barrier: the next stage copied, the next tile
+    // published, the termination vote on the planes composited so far
+    cp_async_wait_all();
+    const int any = __syncthreads_or(alive);
+    j = jn;
+    jn = jnn;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      smp_c[u] = smp_n[u];
+      g1_c[u] = g1_n[u];
+      g2_c[u] = g2_n[u];
     }
+    if (P.term && !any) break;  // block-uniform
   }
+  cp_async_wait_all();  // a block that stopped early leaves no copy behind
 
-  if (live) {
-    const size_t plane = (size_t)P.hi * P.wi;
-    const size_t o = (size_t)row * P.wi + col;
-    for (int c = 0; c < 7; ++c) P.out[c * plane + o] = acc[c];
-    P.out[7 * plane + o] = 1.0f - trans;
+  const size_t plane = (size_t)P.hi * P.wi;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (!live[u]) continue;
+    const size_t o = (size_t)(r_first + ty + WARPS * u) * P.wi + col;
+    for (int c = 0; c < 7; ++c) P.out[c * plane + o] = acc[u][c];
+    P.out[7 * plane + o] = 1.0f - trans[u];
+    if (COUNT && P.pixel_samples != nullptr) P.pixel_samples[o] = n_need[u];
   }
   if (P.block_planes != nullptr && tid == 0)
     P.block_planes[blockIdx.y * gridDim.x + blockIdx.x] = jpos;
+  if (COUNT && P.stage_counts != nullptr && tid == 0) {
+    atomicAdd(P.stage_counts, n_staged);
+    atomicAdd(P.stage_counts + 1, n_direct);
+  }
+}
+
+typedef void (*KernelFn)(Params);
+
+template <typename T, int MODE, bool FD>
+static KernelFn pick_count(bool count) {
+  return count ? &swslice_kernel<T, MODE, FD, true>
+               : &swslice_kernel<T, MODE, FD, false>;
 }
 
 template <typename T>
-static cudaError_t launch_typed(const Params& P, int mode, int fd,
-                                cudaStream_t stream) {
-  const dim3 block(BC, BR);
-  const dim3 grid((P.wi + BC - 1) / BC, (P.hi + BR - 1) / BR);
-  const size_t smem = (size_t)P.n_tab * sizeof(float4);
-  if (mode == 0) {
-    swslice_kernel<T, 0, false><<<grid, block, smem, stream>>>(P);
-  } else if (mode == 1) {
-    if (fd) swslice_kernel<T, 1, true><<<grid, block, smem, stream>>>(P);
-    else swslice_kernel<T, 1, false><<<grid, block, smem, stream>>>(P);
-  } else {
-    if (fd) swslice_kernel<T, 2, true><<<grid, block, smem, stream>>>(P);
-    else swslice_kernel<T, 2, false><<<grid, block, smem, stream>>>(P);
+static KernelFn pick_typed(int mode, bool fd, bool count) {
+  if (mode == 0) return pick_count<T, 0, false>(count);
+  if (mode == 1)
+    return fd ? pick_count<T, 1, true>(count) : pick_count<T, 1, false>(count);
+  return fd ? pick_count<T, 2, true>(count) : pick_count<T, 2, false>(count);
+}
+
+static int elem_size(int dtype) {
+  return dtype == 0 ? 4 : dtype == 2 ? 1 : 2;
+}
+
+// The variant for (dtype, mode, fd, count), its threads per block and its
+// dynamic shared memory (table, per-plane bits, windows and schedule, and
+// the slab buffers where the grid's rows can be staged: without them the
+// L1 cache keeps that room); null for an unknown dtype.
+static KernelFn variant(int dtype, int mode, int fd, int count, int n_tab,
+                        int n_slices, bool staged, int* threads,
+                        size_t* smem, int* fp_off, int* ring_off) {
+  const bool fd_on = mode >= 1 && fd;
+  KernelFn k;
+  switch (dtype) {
+    case 0: k = pick_typed<float>(mode, fd_on, count); break;
+    case 1: k = pick_typed<bf16_t>(mode, fd_on, count); break;
+    case 2: k = pick_typed<unsigned char>(mode, fd_on, count); break;
+    case 3: k = pick_typed<unsigned short>(mode, fd_on, count); break;
+    default: return nullptr;
   }
-  return cudaGetLastError();
+  const int words = (2 * (n_slices / 32 + 2) + 3) / 4 * 4;
+  *fp_off = 16 * n_tab + 4 * words;
+  *ring_off = *fp_off + (12 * n_slices + 15) / 16 * 16;
+  *smem = (size_t)*ring_off
+          + (staged ? (size_t)NBUF * CR * CC * elem_size(dtype) : 0);
+  *threads = NT;
+  return k;
+}
+
+// The cp.async size (bytes) at which every window row of this grid can be
+// copied: contiguous columns, and base, row, slab stride and row length
+// all multiples of it (windows keep voxel indices as shorts). 0: taps are
+// read from the grid.
+static int copy_bytes(const void* grid, long long sa, long long sr,
+                      long long sc, int nr, int nc, int es) {
+  if (sc != 1 || nr > 32767 || nc > 32767) return 0;
+  const long long abs_sa = sa < 0 ? -sa : sa;
+  for (int g = 16; g >= 4; g /= 2)
+    if ((uintptr_t)grid % g == 0 && (sr * es) % g == 0
+        && (abs_sa * es) % g == 0 && ((long long)nc * es) % g == 0)
+      return g;
+  return 0;
 }
 
 extern "C" {
@@ -466,23 +881,56 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
                        const int* k0l, int la, int lr, int lc,
                        const float* maj, int ma, int mr, int mc, int flip,
                        int mode, int fd, int n_extra, int term, float* out,
-                       int* block_planes, void* stream) {
+                       int* block_planes, int* pixel_samples,
+                       int* stage_counts, void* stream) {
   if (n_tab < 1 || n_tab > MAX_TAB || mode < 0 || mode > 2 || n_extra < 0
       || n_extra > 4 || wi < 1 || hi < 1 || n_slices < 0 || na < 2)
     return (int)cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
+  int threads, fp_off, ring_off;
+  size_t smem;
+  const int count = pixel_samples != nullptr || stage_counts != nullptr;
+  const int g = copy_bytes(grid, sa, sr, sc, nr, nc, elem_size(dtype));
+  const KernelFn k = variant(dtype, mode, fd, count, n_tab, n_slices, g > 0,
+                             &threads, &smem, &fp_off, &ring_off);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
   Params P{grid, sa, sr, sc, na, nr, nc, tab, n_tab, scal, pg, wi, qg, hi,
            k0, n_slices, lgrid, k0l, la, lr, lc, maj, ma, mr, mc, flip,
-           n_extra, term, out, block_planes};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dtype) {
-    case 0: e = launch_typed<float>(P, mode, fd, s); break;
-    case 1: e = launch_typed<bf16_t>(P, mode, fd, s); break;
-    case 2: e = launch_typed<unsigned char>(P, mode, fd, s); break;
-    case 3: e = launch_typed<unsigned short>(P, mode, fd, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return (int)e;
+           n_extra, term, out, block_planes, pixel_samples, stage_counts,
+           g, n_slices / 32 + 2, fp_off, ring_off};
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid_dim((wi + BC - 1) / BC, (hi + BR - 1) / BR);
+  k<<<grid_dim, threads, smem, static_cast<cudaStream_t>(stream)>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// Threads per block, dynamic shared memory and resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the variant, and
+// launch configuration, that a launch with these arguments (and no
+// counts) runs.
+int ovr_swslice_occupancy(const void* grid, long long sa, long long sr,
+                          long long sc, int nr, int nc, int dtype, int mode,
+                          int fd,
+                          int n_tab, int n_slices, int* threads,
+                          int* smem_bytes, int* blocks_per_sm) {
+  if (dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
+  int fp_off, ring_off;
+  size_t smem;
+  const bool staged =
+      copy_bytes(grid, sa, sr, sc, nr, nc, elem_size(dtype)) > 0;
+  const KernelFn k = variant(dtype, mode, fd, 0, n_tab, n_slices, staged,
+                             threads, &smem, &fp_off, &ring_off);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  *smem_bytes = (int)smem;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, k, *threads, smem);
 }
 
 const char* ovr_swslice_error_string(int e) {

@@ -27,10 +27,11 @@ BUILD_DIR = PKG_DIR / "_build"
 # into fma. Shading divides sample differences by the fan spacing, and
 # on quantized (u8) volumes those differences are often rounding noise:
 # the normal of a noise-level gradient only agrees with the plain
-# version when both round alike.
+# version when both round alike. --split-compile=0: optimize and
+# assemble a source's kernel variants in parallel, on every core.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "--split-compile=0")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -107,7 +107,9 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
                     mode: int = 0, lgrid=None, k0l=None, n_extra: int = 0,
                     majorant_v=None, term: bool = True, fd: bool = True,
                     axial_flip: bool = False,
-                    block_planes: Optional[torch.Tensor] = None):
+                    block_planes: Optional[torch.Tensor] = None,
+                    pixel_samples: Optional[torch.Tensor] = None,
+                    stage_counts: Optional[torch.Tensor] = None):
     """Run the fused slice loop. grid_v (A, Nr, Nc) volume in traversal
     layout (f32, bf16, u8 or u16; any strides); rgba_tab (K, 4) merged
     nodal table; scalars (N_SCALARS,) in the S_* layout; pg (Wi,), qg
@@ -121,16 +123,33 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
     `block_planes`, if given, is an int32 tensor of one entry per block
     (row-major over a ceil(Hi/BLOCK_ROWS) x ceil(Wi/BLOCK_COLS) grid)
     that receives the number of planes each block composited.
+    `pixel_samples`, if given, is an int32 (Hi, Wi) tensor that receives
+    per pixel the samples the function needs: those at which the pixel's
+    T > T_EPS and its opacity is not zero, and in modes >= 1 also the
+    previous computed plane before each such one (its sample feeds the
+    axial difference). Skipping and termination leave it unchanged.
+    `stage_counts` (CUDA tensors only), if given, is an int32 (2,) tensor
+    that receives the planes the kernel's blocks sampled from staged slab
+    windows and from the grid directly. Given either, the kernel runs its
+    counting variant; the timed launch carries no counter.
 
     Returns (8, Hi, Wi) f32. CUDA tensors run the kernel (or raise);
     CPU tensors run `slice_composite_plain`."""
     _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
            k0l, n_extra, majorant_v)
-    fn = _slice_composite_cuda if grid_v.is_cuda else slice_composite_plain
-    return fn(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode=mode,
-              lgrid=lgrid, k0l=k0l, n_extra=n_extra, majorant_v=majorant_v,
-              term=term, fd=fd, axial_flip=axial_flip,
-              block_planes=block_planes)
+    kw = dict(mode=mode, lgrid=lgrid, k0l=k0l, n_extra=n_extra,
+              majorant_v=majorant_v, term=term, fd=fd,
+              axial_flip=axial_flip, block_planes=block_planes,
+              pixel_samples=pixel_samples)
+    if grid_v.is_cuda:
+        return _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0,
+                                     n_slices, stage_counts=stage_counts,
+                                     **kw)
+    if stage_counts is not None:
+        raise ValueError("stage_counts describes a kernel launch; CPU "
+                         "tensors run the plain version")
+    return slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
+                                 n_slices, **kw)
 
 
 def _bind(lib):
@@ -145,8 +164,12 @@ def _bind(lib):
             p, p, i, i, i,  # lattice, k0l, dims
             p, i, i, i, i,  # majorants, dims, flip
             i, i, i, i,  # mode, fd, n_extra, term
-            p, p, p]  # out, block_planes, stream
+            p, p, p, p, p]  # out, the three counts, stream
         f.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ovr_swslice_occupancy.argtypes = ([p, ll, ll, ll] + [i] * 7
+                                              + [ip] * 3)
+        lib.ovr_swslice_occupancy.restype = ctypes.c_int
         lib.ovr_swslice_error_string.argtypes = [ctypes.c_int]
         lib.ovr_swslice_error_string.restype = ctypes.c_char_p
         lib.ovr_swslice_block_dims.argtypes = [ctypes.POINTER(ctypes.c_int),
@@ -159,15 +182,57 @@ def _bind(lib):
     return f
 
 
+def kernel_occupancy(grid_v, mode: int, fd: bool, n_tab: int,
+                     n_slices: int, axial_flip: bool = False) -> dict:
+    """What the kernel variant and launch configuration that
+    `slice_composite` runs for these arguments (without counts) take on
+    the current card,
+    as the CUDA runtime reports it: `threads` per block, `smem_bytes` of
+    dynamic shared memory and `blocks_per_sm`
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from ovr_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("swslice").lib
+    _bind(lib)
+    base, sa, sr, scs = _grid_layout(grid_v, axial_flip)
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = lib.ovr_swslice_occupancy(
+        base, sa, sr, scs, grid_v.shape[1], grid_v.shape[2],
+        _DTYPE_CODE[grid_v.dtype], mode, int(fd), n_tab, n_slices,
+        *map(ctypes.byref, vals))
+    if err:
+        raise RuntimeError("swslice occupancy query failed: "
+                           + lib.ovr_swslice_error_string(err).decode())
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def _grid_layout(grid_v, axial_flip):
+    """The kernel's view of grid_v: the address of traversal slab 0 and
+    element strides (a negative axial stride walks it backward)."""
+    sa, sr, scs = grid_v.stride()
+    base = grid_v.data_ptr()
+    if axial_flip:
+        base += (grid_v.shape[0] - 1) * sa * grid_v.element_size()
+        sa = -sa
+    return base, sa, sr, scs
+
+
+def _check_int32(name, t, n):
+    if t is not None and (t.dtype != torch.int32 or t.numel() != n
+                          or not t.is_contiguous()):
+        raise ValueError(f"{name} must be {n} contiguous int32")
+
+
 def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
                           *, mode, lgrid, k0l, n_extra, majorant_v, term, fd,
-                          axial_flip, block_planes):
+                          axial_flip, block_planes, pixel_samples,
+                          stage_counts):
     global LAUNCHES
     from ovr_tpu_torch.ops import cuda_build
 
     dev = grid_v.device
     for t in (rgba_tab, scalars, pg, qg, k0, lgrid, k0l, majorant_v,
-              block_planes):
+              block_planes, pixel_samples, stage_counts):
         if t is not None and t.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
     if rgba_tab.shape[0] > MAX_TAB:
@@ -180,11 +245,7 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
     sc = _prepared_scalars(scalars, grid_v.dtype, pgf, qgf).contiguous()
     tab = rgba_tab.to(torch.float32).contiguous()
     k0i = k0.to(torch.int32).contiguous()
-    sa, sr, scs = grid_v.stride()
-    base = grid_v.data_ptr()
-    if axial_flip:
-        base += (n_a - 1) * sa * grid_v.element_size()
-        sa = -sa
+    base, sa, sr, scs = _grid_layout(grid_v, axial_flip)
     if mode == 2:
         lg = lgrid.to(torch.float32).contiguous()
         k0li = k0l.to(torch.int32).contiguous()
@@ -198,13 +259,12 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
     else:
         ma = mr = mcn = 0
         maj_p = None
-    if block_planes is not None:
-        n_blocks = math.ceil(hi / BLOCK_ROWS) * math.ceil(wi / BLOCK_COLS)
-        if (block_planes.dtype != torch.int32
-                or block_planes.numel() != n_blocks
-                or not block_planes.is_contiguous()):
-            raise ValueError(f"block_planes must be {n_blocks} contiguous "
-                             "int32")
+    _check_int32("block_planes", block_planes,
+                 math.ceil(hi / BLOCK_ROWS) * math.ceil(wi / BLOCK_COLS))
+    _check_int32("pixel_samples", pixel_samples, hi * wi)
+    _check_int32("stage_counts", stage_counts, 2)
+    if stage_counts is not None:
+        stage_counts.zero_()  # the kernel's blocks add into it
     out = torch.empty((8, hi, wi), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -217,7 +277,8 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
             maj_p, ma, mr, mcn, int(axial_flip),
             mode, int(fd), n_extra, int(term),
             out.data_ptr(),
-            None if block_planes is None else block_planes.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (block_planes, pixel_samples, stage_counts)),
             stream)
     if err:
         lib = cuda_build.load("swslice").lib
@@ -330,10 +391,11 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
                           n_slices: int, *, mode: int = 0, lgrid=None,
                           k0l=None, n_extra: int = 0, majorant_v=None,
                           term: bool = True, fd: bool = True,
-                          axial_flip: bool = False, block_planes=None):
+                          axial_flip: bool = False, block_planes=None,
+                          pixel_samples=None):
     """The fused slice loop in PyTorch, arithmetic in the kernel's order
     and per-block skipping/termination as the kernel does them. Same
-    arguments and result as `slice_composite`."""
+    arguments and result as `slice_composite` (without `stage_counts`)."""
     f32 = torch.float32
     dev = grid_v.device
     n_a, n_r, n_c = grid_v.shape
@@ -394,6 +456,8 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
     jpos = torch.zeros((hi, wi), dtype=torch.int32, device=dev)
     alive = torch.ones((nbr, nbc), dtype=torch.bool, device=dev)
     planes = torch.zeros((nbr, nbc), dtype=torch.int32, device=dev)
+    n_need = torch.zeros((hi, wi), dtype=torch.int32, device=dev)
+    last_need = torch.zeros((hi, wi), dtype=torch.bool, device=dev)
     maj = None if majorant_v is None else majorant_v.to(f32)
 
     def raw_active(j):
@@ -468,6 +532,12 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
                         torch.clamp(a_raw, 0.0, 1.0), a)
         a = torch.where(dt_w > 0.0, a, 0.0)
         a = torch.clamp(a, max=1.0 - 1e-6)
+        need = comp & (trans > T_EPS) & (a > 0.0)
+        n_need = n_need + need.to(torch.int32)
+        if mode >= 1:
+            n_need = n_need + (need & (jpos > 0) & ~last_need).to(
+                torch.int32)
+        last_need = torch.where(comp, need, last_need)
 
         vals = [rgb[..., 0], rgb[..., 1], rgb[..., 2]]
         if mode >= 1:
@@ -542,4 +612,6 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
                                 alive)
     if block_planes is not None:
         block_planes.copy_(planes.reshape(-1))
+    if pixel_samples is not None:
+        pixel_samples.copy_(n_need.reshape(pixel_samples.shape))
     return torch.cat([acc, (1.0 - trans)[None]])

@@ -136,6 +136,52 @@ def test_kernel_matches_plain_on_card(shading, fd, skip, dtype, cam,
         tol = 5e-4 if term else 1e-4
         assert_out_close(out.cpu().numpy(), ref.cpu().numpy(), rgb=tol,
                          depth=5e-4 if not term else 5e-3)
+        # the counting variant: the same result, planes per block and
+        # samples per pixel as the plain version counts them
+        got, want = _counts(args), _counts(args)
+        stages = torch.zeros(2, dtype=torch.int32, device="cuda")
+        out_c = swslice.slice_composite(*args, **dict(kw, term=term, **got),
+                                        stage_counts=stages)
+        swslice.slice_composite_plain(*args, **dict(kw, term=term, **want))
+        assert torch.equal(out_c, out)
+        for k in got:
+            assert torch.equal(got[k], want[k])
+        assert int(stages.sum()) >= int(got["block_planes"].sum())
+
+
+def _counts(args):
+    """Zeroed block_planes and pixel_samples for slice_composite."""
+    hi, wi = args[4].shape[0], args[3].shape[0]
+    n_blocks = (-(-hi // swslice.BLOCK_ROWS)
+                * -(-wi // swslice.BLOCK_COLS))
+    z = dict(dtype=torch.int32, device=args[0].device)
+    return dict(block_planes=torch.zeros(n_blocks, **z),
+                pixel_samples=torch.zeros((hi, wi), **z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "u8"])
+def test_early_termination_leaves_no_error(dtype):
+    """Blocks that stop early leave no copy in flight: an opaque frame
+    whose blocks terminate synchronizes without an error, and every one
+    of many launches gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _scene("smooth", dtype, "persp", n=64, opaque=True,
+                   device="cuda")
+    args, kw = capture(scene, "diffuse", base_rate=32.0, width=240,
+                       height=180, rate=64.0)
+    kw = dict(kw, term=True)
+    planes = _counts(args)["block_planes"]
+    first = swslice.slice_composite(*args, **kw, block_planes=planes)
+    torch.cuda.synchronize()
+    assert int(planes.min()) < args[6] // 2  # blocks did stop early
+    for _ in range(20):
+        assert torch.equal(swslice.slice_composite(*args, **kw), first)
+    torch.cuda.synchronize()
+    ref = swslice.slice_composite_plain(*args, **kw)
+    assert_out_close(first.cpu().numpy(), ref.cpu().numpy(), rgb=5e-4,
+                     depth=5e-3)
 
 
 @pytest.mark.cuda

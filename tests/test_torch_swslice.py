@@ -141,6 +141,47 @@ def test_axial_flip_matches_flipped_copy():
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("shading", ["none", "diffuse"])
+@pytest.mark.parametrize("cam", ["persp", "ortho", "back"])
+def test_pixel_samples_ignore_skip_and_term(cam, shading):
+    """The per-pixel count of needed samples (the bound's rule in
+    chip_smoke.py) is the same with skipping and termination on or off:
+    it depends on each pixel's own samples, not on its block's decisions,
+    so it is the same for any tile. No pixel counts more samples than its
+    block composited planes, or twice that in a shaded mode."""
+    scene = _scene("sparse", cam=cam, opaque=True)
+    args, kw = capture(scene, shading, skip=True, base_rate=8.0)
+    assert kw["axial_flip"] == (cam == "back")
+    hi, wi = args[4].shape[0], args[3].shape[0]
+    nbr = -(-hi // swslice.BLOCK_ROWS)
+    counts = []
+    for skip in (False, True):
+        for term in (False, True):
+            ps = torch.zeros((hi, wi), dtype=torch.int32)
+            bp = torch.zeros(nbr * -(-wi // swslice.BLOCK_COLS),
+                             dtype=torch.int32)
+            swslice.slice_composite(*args, **dict(
+                kw, term=term, majorant_v=kw["majorant_v"] if skip else None,
+                pixel_samples=ps, block_planes=bp))
+            counts.append(ps)
+            if skip and term:
+                planes = swslice._to_pixels(bp.view(nbr, -1), hi, wi)
+                assert int(planes.sum()) < hi * wi * args[6]  # work avoided
+    for c in counts[1:]:
+        assert torch.equal(c, counts[0])
+    assert int(counts[0].sum()) > 0
+    assert bool((counts[0] <= planes * (2 if shading != "none" else 1)
+                 ).all())
+
+
+def test_stage_counts_need_the_kernel():
+    """`stage_counts` describes a kernel launch: CPU tensors refuse it."""
+    args, kw = capture(_scene(n=24), "none")
+    with pytest.raises(ValueError, match="kernel launch"):
+        swslice.slice_composite(*args, **kw,
+                                stage_counts=torch.zeros(2, dtype=torch.int32))
+
+
 def test_requires_grad_raises():
     args, kw = capture(_scene(n=24), "none")
     grid = args[0].float().requires_grad_(True)
