@@ -9,8 +9,9 @@
    for modes 0/1/2, both gradient stencils, skipping and termination on
    and off, f32/bf16/u8 grids, perspective, orthographic and principal-x
    cameras (the last with strided fan columns), at 64^3 and 256^3 and on
-   the 1024^3 headline volume at 240x135 (a fan so coarse that the tiles'
-   footprints exceed the slab windows); in each case it also runs the
+   the 1024^3 headline volume at 240x135 (the last and a 256^3 frame at
+   64x36 with fans so coarse that the tiles' footprints exceed the slab
+   windows); in each case it also runs the
    kernel's counting variant, which must give the same bits, and holds
    the planes per block and the samples each pixel needs against the
    plain version's counts, and the planes sampled from staged slab
@@ -271,6 +272,8 @@ def parity(grids):
          "staged"),
         (256, "bf16", "bench", "diffuse", True, True, True, "side", 480, 270,
          0, "direct"),
+        (256, "f32", "bench", "shadow", True, True, True, "persp", 64, 36, 0,
+         "some direct"),
         (1024, "bf16", "bench", "diffuse", True, True, True, "persp", 240,
          135, 0, "some direct"),
         (1024, "bf16", "bench", "none", True, True, False, "persp", 240, 135,
