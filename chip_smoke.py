@@ -25,8 +25,22 @@
    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor); then holds the
    kernel against its plain version on each headline frame's own inputs,
    cut to a band of 64 fan rows with all columns, and times both there;
-5. prints one JSON line of kernel measurements, then, last, the device
-   line {"ok": true, "device": {...}}.
+5. takes gradients through `api.render` (the slice kernel forward with
+   termination off, the analytic adjoint backward): at 64^3 f32 (bench
+   and sparse fields, perspective and orthographic, none/diffuse/shadow,
+   macrocells on) it holds the gradients of the grid and the TF's alpha,
+   colour and value range against the same on CPU copies of the inputs,
+   and checks that each frame launched the kernel once and never ran the
+   plain version on the card; on the headline frame (none, diffuse,
+   shadow) it times bench.py's backward step (mean(rgba^2) +
+   mean(grad^2), gradients of the grid and the TF alpha), prints ms per
+   step, Mrays/s, peak memory and launches per step, checks the
+   gradients and holds the TF alpha's against a central directional
+   difference; then splits a reverse sweep (the diffuse frame cut to 32
+   planes) into device and host time with torch.profiler;
+6. prints one JSON line of backward measurements and one of kernel
+   measurements, then, last, the device line {"ok": true, "device":
+   {...}}.
 
 Exits non-zero without a CUDA device, without the repository beside it,
 or when any phase fails. Imports neither JAX nor the JAX package.
@@ -380,11 +394,12 @@ HEADLINES = (("diffuse", "diffuse", "persp"), ("none", "none", "persp"),
              ("shadow", "shadow", "persp"), ("diffuse-x", "diffuse", "side"))
 
 
-def headline_cfg(scene, shading):
-    """The headline frame's resolved config: 1920x1080, 1024 planes."""
+def headline_cfg(scene, shading, rate=1024.0):
+    """The headline frame's resolved config: 1920x1080, 1024 planes (or
+    `rate` planes)."""
     from ovr_tpu_torch import api
     cfg = api.RenderConfig(
-        width=1920, height=1080, spp=1, sampling_rate=1024.0,
+        width=1920, height=1080, spp=1, sampling_rate=rate,
         shading=shading, method="auto", fast_math=True,
         use_macrocells=True).resolved(scene)
     if cfg.sw is None:
@@ -528,6 +543,262 @@ def band_check(label, r, args, kw, full):
                          "headline frame's inputs")
 
 
+class PlainCalls:
+    """Counts calls of `slice_composite_plain` with CUDA tensors while
+    installed (a `with` block)."""
+
+    def __enter__(self):
+        from ovr_tpu_torch.ops import swslice
+        self.n, self.orig = 0, swslice.slice_composite_plain
+
+        def spy(grid_v, *args, **kw):
+            self.n += int(grid_v.is_cuda)
+            return self.orig(grid_v, *args, **kw)
+
+        swslice.slice_composite_plain = spy
+        return self
+
+    def __exit__(self, *exc):
+        from ovr_tpu_torch.ops import swslice
+        swslice.slice_composite_plain = self.orig
+
+
+def loss_and_grads(scene, cfg, wrt, **render_kw):
+    """bench.py's backward loss, mean(rgba^2) + mean(grad^2), of one
+    `api.render` frame, and its gradients with respect to the scene
+    tensors named in `wrt` (grid, alpha, color, value_range). The forward
+    ends at CUDA event `marks[0]`, the backward at `marks[1]` (on the
+    card)."""
+    import torch
+    from ovr_tpu_torch import api
+    vals = {"grid": scene.volume.grid, "alpha": scene.tfn.alpha,
+            "color": scene.tfn.color, "value_range": scene.tfn.value_range}
+    vals = {k: vals[k].detach().requires_grad_(True) for k in wrt}
+    tfn = dataclasses.replace(scene.tfn, **{k: v for k, v in vals.items()
+                                            if k != "grid"})
+    vol = dataclasses.replace(scene.volume,
+                              grid=vals.get("grid", scene.volume.grid))
+    frame = api.render(dataclasses.replace(scene, volume=vol, tfn=tfn), cfg,
+                       **render_kw)
+    loss = (frame.rgba ** 2).mean() + (frame.grad ** 2).mean()
+    cuda = loss.is_cuda
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    if cuda:
+        marks[0].record()
+    grads = torch.autograd.grad(loss, list(vals.values()))
+    if cuda:
+        marks[1].record()
+    return loss.detach(), dict(zip(vals, grads)), marks
+
+
+def backward_parity(grids):
+    """The frame's gradients with the kernel forward and the adjoint on
+    the card against the same on CPU copies of the inputs (the plain
+    forward, the same adjoint), 64^3 f32, macrocells on. Returns the
+    largest error, normalised by the largest element of the CPU's."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import accel
+    worst = 0.0
+    wrt = ("grid", "alpha", "color", "value_range")
+    for kind in ("bench", "sparse"):
+        for cam in ("persp", "ortho"):
+            for shading in ("none", "diffuse", "shadow"):
+                grads = []
+                for grid in (grids[(64, "f32", kind)],
+                             grids[(64, "f32", kind)].cpu()):
+                    scene = make_scene(grid, kind, cam)
+                    cfg = api.RenderConfig(
+                        width=160, height=90, sampling_rate=64.0,
+                        shading=shading, method="shearwarp").resolved(scene)
+                    mc = accel.build_macrocells(grid, scene.tfn.alpha,
+                                                scene.tfn.value_range)
+                    n0 = swslice.LAUNCHES
+                    with PlainCalls() as plain:
+                        _, g, _ = loss_and_grads(scene, cfg, wrt,
+                                                 macrocells=mc)
+                    n1 = swslice.LAUNCHES - n0
+                    if grid.is_cuda and (n1 != 1 or plain.n):
+                        raise SystemExit(
+                            f"backward {kind} {cam} {shading}: {n1} kernel "
+                            f"launches for one frame, {plain.n} plain calls "
+                            f"with CUDA tensors")
+                    grads.append(g)
+                errs = {k: float((grads[0][k].cpu() - grads[1][k]).abs().max()
+                                 / grads[1][k].abs().max()) for k in wrt}
+                worst = max([worst] + list(errs.values()))
+                ok = all(e <= 1e-3 for e in errs.values())
+                log(f"backward parity 64^3 f32 {kind} {cam} {shading}: card "
+                    f"vs CPU gradient, normalised max error " + ", ".join(
+                        f"{k} {e:.2e}" for k, e in errs.items())
+                    + f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("the card's gradient disagrees with the "
+                                     "CPU's")
+    return worst
+
+
+BWD_SHADINGS = ("none", "diffuse", "shadow")
+FD_EPS = 1e-2  # step of the directional difference in the TF alpha
+
+
+def backward_headline(grid, smi):
+    """The headline frame's backward (bench.py's BENCH_BACKWARD loss,
+    gradients of the grid and the TF alpha) per shading: 1 warm-up and 3
+    timed steps (1 if a step takes over 20 s), CUDA events around the
+    forward and the backward; checks the gradients and holds the TF
+    alpha's against a central directional difference."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import accel
+
+    scene = make_scene(grid, "bench", "persp")
+    mc = accel.build_macrocells(grid, scene.tfn.alpha,
+                                scene.tfn.value_range)
+    d = torch.randn(scene.tfn.alpha.shape[0],
+                    generator=torch.Generator().manual_seed(0)).to(grid.device)
+    results = {}
+    swslice.LAUNCHES = 0
+    for shading in BWD_SHADINGS:
+        cfg = headline_cfg(scene, shading)
+        lg = None
+        if shading == "shadow":  # built once, as bench.py does
+            with torch.no_grad():
+                lg = api.build_light_grid(scene, cfg)
+        kw = dict(macrocells=mc, light_grid=lg)
+        n0 = swslice.LAUNCHES
+        t0 = time.perf_counter()
+        loss, g, _ = loss_and_grads(scene, cfg, ("grid", "alpha"), **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        steps = 3 if first_s <= 20.0 else 1
+        torch.cuda.reset_peak_memory_stats()
+        fwd, bwd = [], []
+        for _ in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, g, marks = loss_and_grads(scene, cfg, ("grid", "alpha"),
+                                            **kw)
+            torch.cuda.synchronize()
+            fwd.append(start.elapsed_time(marks[0]))
+            bwd.append(marks[0].elapsed_time(marks[1]))
+        peak = torch.cuda.max_memory_allocated()
+        launches = (swslice.LAUNCHES - n0) / (1 + steps)
+        gg, ga = g["grid"], g["alpha"]
+        finite = bool(torch.isfinite(gg).all() and torch.isfinite(ga).all())
+        nonzero = bool(gg.abs().max() > 0 and ga.abs().max() > 0)
+        # the directional difference, both sides without termination
+        cfg_nt = dataclasses.replace(cfg, sw=dataclasses.replace(
+            cfg.sw, term=False))
+        side = []
+        with torch.no_grad():
+            for s in (1.0, -1.0):
+                tfn = dataclasses.replace(
+                    scene.tfn, alpha=scene.tfn.alpha + s * FD_EPS * d)
+                f = api.render(dataclasses.replace(scene, tfn=tfn), cfg_nt,
+                               **kw)
+                side.append(float(((f.rgba ** 2).mean()
+                                   + (f.grad ** 2).mean()).double()))
+        fd = (side[0] - side[1]) / (2 * FD_EPS)
+        an = float((ga.double() * d.double()).sum())
+        fd_err = abs(fd - an) / max(abs(an), 1e-30)
+        step_ms = [a + b for a, b in zip(fwd, bwd)]
+        med = sorted(step_ms)[len(step_ms) // 2]
+        r = dict(step_ms=step_ms, fwd_ms=fwd, bwd_ms=bwd, steps=steps,
+                 first_step_s=first_s,
+                 mrays_s=1920 * 1080 * cfg.spp / (med * 1e-3) / 1e6,
+                 peak_bytes=peak, launches_per_step=launches,
+                 grid_grad=f"{gg.dtype} {tuple(gg.shape)}",
+                 loss=float(loss), fd=fd, analytic=an, fd_rel_err=fd_err)
+        results[shading] = r
+        log(f"backward headline {shading:7s} 1920x1080 1024^3 bf16: step "
+            f"{', '.join(f'{x:.0f}' for x in step_ms)} ms ({steps} timed "
+            f"step{'s' if steps > 1 else ', the first took over 20 s'}; "
+            f"forward {', '.join(f'{x:.1f}' for x in fwd)} ms, backward "
+            f"{', '.join(f'{x:.0f}' for x in bwd)} ms), {r['mrays_s']:.3f} "
+            f"Mrays/s fwd+bwd, peak memory {peak / 2**30:.2f} GiB, "
+            f"{launches:g} kernel launches per step, grid gradient "
+            f"{r['grid_grad']}, finite {finite}, nonzero {nonzero}; TF alpha "
+            f"directional derivative {an:.6e} vs central difference "
+            f"{fd:.6e} (eps {FD_EPS}), relative error {fd_err:.2e}; {smi}")
+        if (not finite or not nonzero or fd_err > 2e-2 or launches != 1
+                or gg.dtype != torch.bfloat16
+                or tuple(gg.shape) != tuple(grid.shape)):
+            raise SystemExit(f"backward {shading} failed its checks")
+        del g, gg, ga
+    return results, swslice.LAUNCHES, scene, mc
+
+
+PROFILE_PLANES = 32  # planes of the profiled sweep (reading a profile
+# costs ~0.1 ms per event on the host, ~1000 events per plane)
+
+
+def backward_profile(scene, mc):
+    """One reverse sweep of the diffuse headline frame, cut to
+    PROFILE_PLANES planes: its wall time without a profiler, then under
+    torch.profiler the device time of its kernels, the kernels and the
+    ops (by input shapes) that take most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ovr_tpu_torch import api
+
+    cfg = headline_cfg(scene, "diffuse", rate=float(PROFILE_PLANES))
+    grid = scene.volume.grid.detach().requires_grad_(True)
+    vol = dataclasses.replace(scene.volume, grid=grid)
+    frame = api.render(dataclasses.replace(scene, volume=vol), cfg,
+                       macrocells=mc)
+    loss = (frame.rgba ** 2).mean() + (frame.grad ** 2).mean()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.autograd.grad(loss, [grid], retain_graph=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        torch.autograd.grad(loss, [grid])
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    kernels = [e for e in prof.key_averages() if e.device_type ==
+               DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    top_kernels = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                          for e in kernels), reverse=True)[:8]
+    # aten ops by input shapes and the device time of their kernels
+    # (an op's children included: nested ops count in both)
+    ops = sorted(((e.device_time_total / 1e3, e.count,
+                   e.cpu_time_total / 1e3, e.key, str(e.input_shapes))
+                  for e in prof.key_averages(group_by_input_shape=True)
+                  if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::")), reverse=True)[:12]
+    n_launch = sum(e.count for e in kernels)
+    log(f"backward profile, one reverse sweep of the diffuse headline "
+        f"frame cut to {cfg.sw.n_slices} planes: {wall_ms:.0f} ms wall "
+        f"({prof_wall_ms:.0f} ms under the profiler), {busy:.0f} ms of "
+        f"kernels ({100 * busy / wall_ms:.1f}% of the wall; the rest is "
+        f"host time, launches included), {n_launch} kernel launches "
+        f"({1e3 * wall_ms / max(n_launch, 1):.1f} us of wall each); "
+        f"profile read in {time.perf_counter() - t0:.0f} s. Kernels by "
+        f"device time:")
+    for ms, count, key in top_kernels:
+        log(f"  {ms:9.1f} ms  x{count:<7d} {key[:90]}")
+    log("aten ops by device time (with children), by input shapes:")
+    for dev_ms, count, cpu_ms, key, shapes in ops:
+        log(f"  {dev_ms:9.1f} ms device  x{count:<6d} {cpu_ms:8.1f} ms host"
+            f"  {key} {shapes[:70]}")
+    return dict(planes=cfg.sw.n_slices, wall_ms=wall_ms,
+                profiled_wall_ms=prof_wall_ms, device_ms=busy,
+                launches=n_launch,
+                top_kernels=[dict(kernel=k[:120], device_ms=ms, count=c)
+                             for ms, c, k in top_kernels],
+                top_ops=[dict(op=k, shapes=s[:200], count=c, host_ms=h,
+                              device_ms=d) for d, c, h, k, s in ops])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -572,7 +843,24 @@ def main() -> int:
         raise SystemExit("the main path never launched the slice kernel")
     head = results["diffuse"]
     worst = max([worst] + [r["band_err"] for r in results.values()])
+
+    bwd_worst = backward_parity(grids)
+    log(f"backward parity: all cases agree, largest normalised difference "
+        f"{bwd_worst:.2e} ({time.perf_counter() - t0:.0f} s so far)")
+    big = grids[(1024, "bf16", "bench")]
+    for key in [k for k in grids if k[0] != 1024]:
+        del grids[key]
+    bwd, bwd_launches, scene, mc = backward_headline(big, smi)
+    if bwd_launches < 1:
+        raise SystemExit("the backward path never launched the slice kernel")
+    prof = backward_profile(scene, mc)
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
+    print(json.dumps({"backward": {
+        "shape": "1024^3 bf16, 1920x1080, 1024 planes, macrocells on; loss "
+                 "mean(rgba^2) + mean(grad^2), gradients of the grid and "
+                 "the TF alpha",
+        "launches": bwd_launches, "parity_64_max_norm_err": bwd_worst,
+        "modes": bwd, "profile_diffuse": prof, "card": smi}}))
     entry = {
         "name": "swslice",
         "route": "cuda",

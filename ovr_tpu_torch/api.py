@@ -178,8 +178,14 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
 
     `cfg` must be resolved (`cfg.resolved(scene)`). `light_grid`: the
     shadow lattice (`build_light_grid`), built here when shadow shading
-    needs one and none is given. Inputs that require grad raise: the
-    backward is the next slice."""
+    needs one and none is given, from the scene's own tensors, so that a
+    gradient reaches the volume and the TF through it too; a lattice
+    passed in gets a cotangent of its own.
+
+    Differentiable: `loss.backward()` on the frame's tensors gives the
+    gradients of the volume grid (floating point), the TF colour, alpha
+    and value range, the camera, the light and a passed-in lattice. Under
+    grad the slice loop runs without early termination."""
     if cfg.max_steps is None:
         raise ValueError("call cfg.resolved(scene) first")
     if camera is None:

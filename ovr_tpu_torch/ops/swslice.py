@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from ovr_tpu_torch.core.sampling import storage_scale
+from ovr_tpu_torch.ops.adjoint import adjoint_sweep, clip, over_scan
 
 LAUNCHES = 0  # kernel launches through `slice_composite`
 
@@ -79,12 +80,7 @@ def _prepared_scalars(scalars, grid_dtype, pg, qg) -> torch.Tensor:
 
 
 def _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
-           k0l, n_extra, majorant_v):
-    arrays = (grid_v, rgba_tab, scalars, pg, qg, k0, lgrid, k0l, majorant_v)
-    if any(t is not None and t.requires_grad for t in arrays):
-        raise RuntimeError(
-            "slice_composite has no backward yet (the adjoint is the next "
-            "slice of the port); detach the inputs")
+           k0l, n_extra):
     if mode not in (0, 1, 2):
         raise ValueError(f"mode must be 0, 1 or 2, got {mode}")
     if mode == 2 and (lgrid is None or k0l is None):
@@ -134,13 +130,30 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
     counting variant; the timed launch carries no counter.
 
     Returns (8, Hi, Wi) f32. CUDA tensors run the kernel (or raise);
-    CPU tensors run `slice_composite_plain`."""
+    CPU tensors run `slice_composite_plain`.
+
+    Differentiable in grid_v (floating point), rgba_tab, scalars, pg, qg
+    and lgrid: when grad is enabled and any of them requires it, the
+    forward runs with termination off (`term` is ignored; skipping stays
+    on) and keeps only the inputs and the final transmittance; the
+    backward is the bounded-memory analytic adjoint (`ops.adjoint`),
+    which recomputes each plane in reverse through `plane_step`."""
     _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
-           k0l, n_extra, majorant_v)
-    kw = dict(mode=mode, lgrid=lgrid, k0l=k0l, n_extra=n_extra,
-              majorant_v=majorant_v, term=term, fd=fd,
-              axial_flip=axial_flip, block_planes=block_planes,
-              pixel_samples=pixel_samples)
+           k0l, n_extra)
+    opts = dict(n_slices=n_slices, mode=mode, n_extra=n_extra, fd=fd,
+                axial_flip=axial_flip, block_planes=block_planes,
+                pixel_samples=pixel_samples, stage_counts=stage_counts)
+    diff = (grid_v, rgba_tab, scalars, pg, qg, lgrid)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in diff):
+        return _SliceComposite.apply(*diff, k0, k0l, majorant_v, opts)
+    return _run(grid_v, rgba_tab, scalars, pg, qg, k0, lgrid=lgrid, k0l=k0l,
+                majorant_v=majorant_v, term=term, **opts)
+
+
+def _run(grid_v, rgba_tab, scalars, pg, qg, k0, *, n_slices, stage_counts,
+         **kw):
+    """The kernel for CUDA tensors, the plain version for CPU ones."""
     if grid_v.is_cuda:
         return _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0,
                                      n_slices, stage_counts=stage_counts,
@@ -288,6 +301,113 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
     return out
 
 
+class _SliceComposite(torch.autograd.Function):
+    """The slice loop with the analytic adjoint as its backward (the
+    counterpart of `ovr_tpu.render.shearwarp`'s `_fused_none` and
+    `_shaded_loop` custom VJPs)."""
+
+    @staticmethod
+    def forward(ctx, grid_v, rgba_tab, scalars, pg, qg, lgrid, k0, k0l,
+                majorant_v, opts):
+        # termination off: the adjoint rebuilds T_k from the final
+        # transmittance by dividing out each plane's (1 - a_k), so a
+        # truncated forward would corrupt every rebuilt T. Skipping is
+        # exact (skipped planes have zero opacity) and stays on.
+        out = _run(grid_v, rgba_tab, scalars, pg, qg, k0, lgrid=lgrid,
+                   k0l=k0l, majorant_v=majorant_v, term=False, **opts)
+        ctx.opts = {k: opts[k] for k in ("n_slices", "mode", "n_extra",
+                                         "fd", "axial_flip")}
+        ctx.save_for_backward(grid_v, rgba_tab, scalars, pg, qg, lgrid, k0,
+                              k0l, 1.0 - out[7])
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        *ins, k0, k0l, t_final = ctx.saved_tensors
+        grads = _adjoint(*(None if t is None else t.detach() for t in ins),
+                         k0, k0l, t_final, cot, **ctx.opts)
+        out = [None if g is None else g.to(t.dtype)
+               for g, t in zip(grads, ins)]
+        return (*out, None, None, None, None)
+
+
+def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, k0, k0l, t_final,
+             cot, *, n_slices, mode, n_extra, fd, axial_flip):
+    """Cotangents of (grid_v, rgba_tab, scalars, pg, qg, lgrid) for the
+    output cotangent `cot` (8, Hi, Wi): the adjoint sweep over the planes
+    of `_plane_params`, then the chain through `_setup` back to the
+    scalars and fan coordinates."""
+    f32 = torch.float32
+    fd_on = mode >= 1 and fd
+    leaves = [t.requires_grad_(True) for t in (scalars, pg, qg)]
+    with torch.enable_grad():
+        geo, ortho = _setup(leaves[0], grid_v.dtype, leaves[1], leaves[2],
+                            n_slices, mode, fd_on)
+    del geo["exit"]
+    params = dict(geo, grid=grid_v, tab=rgba_tab.to(f32),
+                  kz=[min(_slabs(grid_v, k, axial_flip))
+                      for k in k0.tolist()])
+    if mode == 2:
+        params.update(lgrid=lgrid.to(f32), k0l=k0l.tolist())
+    step = _plane_params(grid_v, mode=mode, fd_on=fd_on, ortho=ortho,
+                         n_extra=n_extra, axial_flip=axial_flip)
+    if mode == 0:
+        # as the JAX package's unshaded backward (the VJP of over_scan):
+        # T_final from the recomputed composite, since 1 - alpha in f32
+        # keeps nothing of a transmittance below 6e-8
+        with torch.no_grad():
+            t_final = over_scan(step, n_slices, params)[1]
+    g = adjoint_sweep(step, n_slices, params, t_final, cot[0:7], -cot[7])
+    pairs = [(geo[k], g[k]) for k in geo
+             if g[k] is not None and geo[k].requires_grad]
+    d_sc, d_pg, d_qg = torch.autograd.grad(
+        [t for t, _ in pairs], leaves, [c for _, c in pairs],
+        allow_unused=True)
+    return g["grid"], g["tab"], d_sc, d_pg, d_qg, g.get("lgrid")
+
+
+def _plane_params(grid_v, *, mode, fd_on, ortho, n_extra, axial_flip):
+    """The adjoint's step: plane k of the loop as (v (7, Hi, Wi), a) from
+    the params dict of `_adjoint` (or its slab windows). Modes >= 1
+    recompute plane k-1's sample for the axial difference, as the JAX
+    package's `_shaded_step` does.
+
+    Every plane is recomputed, the ones the forward skipped too, as the
+    JAX package's backward does: their opacity is at most the majorant
+    threshold (MAJ_EPS), so the rebuilt transmittance is that of the
+    forward, and the gradient does not depend on skip decisions (a TF
+    node of zero opacity has a gradient from every sample that reads it,
+    skipped or not)."""
+    f32 = torch.float32
+
+    def step(p, k):
+        S = p["sc"].unbind()
+
+        def slabs(i):
+            kz = p["kz"][i]
+            lo, up = p["grid"][kz].to(f32), p["grid"][kz + 1].to(f32)
+            return (up, lo) if axial_flip else (lo, up)
+
+        prev = lattice = None
+        if mode >= 1:
+            km = max(k - 1, 0)
+            prev, _ = _resample(*slabs(km), p["fz"][km], p["lam"][km], S,
+                                p["pg"], p["q_smp"], ortho)
+            prev = prev[1:-1] if fd_on else prev
+        if mode == 2:
+            lg, ka = p["lgrid"], p["k0l"][k]
+            lattice = (lg[ka], lg[min(ka + 1, lg.shape[0] - 1)])
+        has_prev = torch.full(p["lin"].shape, k > 0, dtype=torch.bool,
+                              device=p["lin"].device)
+        vals, a, _ = plane_step(*slabs(k), k, p["tab"], S, p, mode=mode,
+                                fd_on=fd_on, ortho=ortho, n_extra=n_extra,
+                                prev=prev, has_prev=has_prev,
+                                lattice=lattice)
+        return torch.stack(vals), a
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -387,30 +507,26 @@ def _block_active(maj, S, pg, qg, k: int, lam, n_a, n_r, n_c, fd_on, ortho,
     return m_rc > MAJ_EPS
 
 
-def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
-                          n_slices: int, *, mode: int = 0, lgrid=None,
-                          k0l=None, n_extra: int = 0, majorant_v=None,
-                          term: bool = True, fd: bool = True,
-                          axial_flip: bool = False, block_planes=None,
-                          pixel_samples=None):
-    """The fused slice loop in PyTorch, arithmetic in the kernel's order
-    and per-block skipping/termination as the kernel does them. Same
-    arguments and result as `slice_composite` (without `stage_counts`)."""
+def _setup(scalars, grid_dtype, pg, qg, n_slices: int, mode: int,
+           fd_on: bool):
+    """The slice loop's plane-independent quantities, differentiable in
+    (scalars, pg, qg): the prepared scalars "sc", the fan coordinates
+    "pg" and "qg" (f32) and the rows "q_smp" that are sampled (with one
+    halo row at each end for the FD gradient), each fan pixel's clip-box
+    interval "lin"/"lout" and box exit "exit", its "speed" (|d| per unit
+    of the ray parameter), and per plane the ray parameter "lam", the
+    axial texel fraction "fz" and, in mode 2, the lattice's "fzl".
+    Returns (that dict, ortho)."""
     f32 = torch.float32
-    dev = grid_v.device
-    n_a, n_r, n_c = grid_v.shape
+    dev = pg.device
     hi, wi = qg.shape[0], pg.shape[0]
-    nbr, nbc = -(-hi // BLOCK_ROWS), -(-wi // BLOCK_COLS)
     pg = pg.to(f32)
     qg = qg.to(f32)
-    S = _prepared_scalars(scalars, grid_v.dtype, pg, qg).unbind()
+    sc = _prepared_scalars(scalars, grid_dtype, pg, qg)
+    S = sc.unbind()
     ortho = bool(S[S_ORTHO] > 0.5)
-    fd_on = mode >= 1 and fd
-    tab = rgba_tab.to(f32)
-    n_tab = tab.shape[0]
-    gs = S[S_GS]
 
-    # slice-independent per-pixel geometry: clip-box interval and speed
+    # per-pixel geometry: clip-box interval and speed
     p2, q2 = pg[None, :], qg[:, None]
     ones = torch.ones((hi, wi), dtype=f32, device=dev)
     l1, h1 = _axis_rng(p2 * ones if ortho else S[S_EW1] * ones,
@@ -428,30 +544,250 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
     # the plane schedule
     jf = torch.arange(n_slices, dtype=f32, device=dev)
     z_rel = (jf + S[S_OFF]) * S[S_DZ]
-    lam_all = z_rel * S[S_DLAM] + S[S_LAM0]
     c = torch.clamp((z_rel - S[S_SMP0]) * S[S_SMPSC] - 0.5, min=0.0)
     c = torch.minimum(c, S[S_NA] - 1.0)
     kf = torch.minimum(torch.clamp(torch.floor(c), min=0.0), S[S_NA] - 2.0)
-    fz_all = c - kf
-    k0_host = k0.tolist()
+    geo = dict(sc=sc, pg=pg, qg=qg, lin=l_in, lout=l_out, exit=exit_t,
+               speed=speed, lam=z_rel * S[S_DLAM] + S[S_LAM0], fz=c - kf)
     if mode == 2:
-        la, l_r, l_c = lgrid.shape
-        lg = lgrid.to(f32)
         cl = torch.clamp(z_rel / S[S_EXA] * S[S_NLA] - 0.5, min=0.0)
         cl = torch.minimum(cl, S[S_NLA] - 1.0)
         kl = torch.minimum(torch.clamp(torch.floor(cl), min=0.0),
                            S[S_NLA] - 2.0)
-        fzl_all = cl - kl
-        k0l_host = k0l.tolist()
+        geo["fzl"] = cl - kl
     if fd_on:
         rows = torch.arange(-1, hi + 1, dtype=f32, device=dev)
-        q_smp = S[S_QLO] + rows * S[S_DQ]
+        geo["q_smp"] = S[S_QLO] + rows * S[S_DQ]
     else:
-        q_smp = qg
-    col = torch.arange(wi, device=dev)[None, :]
+        geo["q_smp"] = qg
+    return geo, ortho
+
+
+def _resample(g0, g1, fz, lam, S, pg, q_smp, ortho):
+    """Slabs g0, g1 (Nr, Nc) z-lerped at fz and resampled bilinearly at
+    the fan rows q_smp and columns pg of plane lam. Returns the sample
+    field and the parts the analytic gradient reads: (smp, (t0, t1, v00,
+    v01, v10, v11, fr (rows,), fc (1, Wi))). The taps are gathered a row
+    index, then a column index at a time, so their backward is two
+    index_adds, not a sort-based index_put."""
+    n_r, n_c = g0.shape
+    plane = g0 * (1.0 - fz) + g1 * fz
+    ir0, ir1, fr = _taps(_vr_of(S, q_smp, lam, n_r, ortho), n_r)
+    ic0, ic1, fc = _taps(_vc_of(S, pg, lam, n_c, ortho), n_c)
+    p0, p1 = plane.index_select(0, ir0), plane.index_select(0, ir1)
+    v00, v01 = p0.index_select(1, ic0), p0.index_select(1, ic1)
+    v10, v11 = p1.index_select(1, ic0), p1.index_select(1, ic1)
+    gs = S[S_GS]
+    wr0 = ((1.0 - fr) * gs)[:, None]
+    wr1 = (fr * gs)[:, None]
+    t0 = v00 * wr0 + v10 * wr1
+    t1 = v01 * wr0 + v11 * wr1
+    fcr = fc[None, :]
+    return t0 * (1.0 - fcr) + t1 * fcr, (t0, t1, v00, v01, v10, v11, fr,
+                                          fcr)
+
+
+class _Classify(torch.autograd.Function):
+    """Two-tap nodal TF lookup, smp (Hi, Wi) -> rgba (Hi, Wi, 4), with the
+    cotangents of `ovr_tpu.render.shearwarp._classify_dense`: the table's
+    is the per-pixel weighted histogram; the sample's and the value
+    range's are zero where the normalized value is at or outside [0, 1],
+    where the node coordinate is at 0 or K-1, and exactly on a node."""
+
+    @staticmethod
+    def forward(ctx, smp, tab, vlo, vscale):
+        rgba, (v_raw, cc, f, i0, i1) = _classify_taps(smp, tab, vlo, vscale)
+        live = ((cc > 0.0) & (cc < tab.shape[0] - 1.0) & (v_raw > 0.0)
+                & (v_raw < 1.0) & (f[..., 0] > 0.0))
+        ctx.save_for_backward(smp, tab, vlo, vscale, f, i0, i1, live)
+        return rgba
+
+    @staticmethod
+    def backward(ctx, cot):
+        smp, tab, vlo, vscale, f, i0, i1, live = ctx.saved_tensors
+        n_tab = tab.shape[0]
+        d_tab = None
+        if ctx.needs_input_grad[1]:
+            # one histogram per fan row, then their sum: a table of a few
+            # nodes takes atomics from every pixel of a row, not the fan
+            hist = cot.new_zeros((cot.shape[0], n_tab, 4))
+            hist.scatter_add_(1, i0[..., None].expand_as(cot),
+                              cot * (1.0 - f))
+            hist.scatter_add_(1, i1[..., None].expand_as(cot), cot * f)
+            d_tab = hist.sum(0)
+        step = _rows(torch.diff(tab, dim=0, append=tab[-1:]), i0)
+        d_v = torch.where(live, torch.sum(cot * step, dim=-1) * (n_tab - 1),
+                          0.0)
+        return (d_v * vscale, d_tab, -torch.sum(d_v) * vscale,
+                torch.sum(d_v * (smp - vlo)))
+
+
+def _rows(table, idx):
+    """table[idx] for a 2D table and an index tensor of any shape."""
+    return table.index_select(0, idx.reshape(-1)).reshape(
+        *idx.shape, table.shape[1])
+
+
+def _classify_taps(smp, tab, vlo, vscale):
+    """The lookup's result and its (v_raw, node coordinate, weight of
+    the upper node (..., 1), lower and upper node indices)."""
+    n_tab = tab.shape[0]
+    v_raw = (smp - vlo) * vscale
+    cc = torch.clamp(v_raw, 0.0, 1.0) * (n_tab - 1)
+    i0f = torch.clamp(torch.floor(cc), 0.0, n_tab - 1.0)
+    f = (cc - i0f)[..., None]
+    i0 = i0f.long()
+    i1 = torch.clamp(i0 + 1, max=n_tab - 1)
+    return _rows(tab, i0) * (1.0 - f) + _rows(tab, i1) * f, (v_raw, cc, f,
+                                                             i0, i1)
+
+
+def plane_step(g0, g1, j, tab, S, geo, *, mode: int, fd_on: bool,
+               ortho: bool, n_extra: int, prev=None, has_prev=None,
+               lattice=None):
+    """One plane of the slice loop: slabs g0, g1 (Nr, Nc) f32 (z-lerped
+    at geo["fz"][j]), the merged table `tab`, the scalars S (unbound) and
+    `_setup`'s dict `geo`. Modes >= 1 take `prev`, the previous plane's
+    sample field, and the bool (Hi, Wi) `has_prev`, where it exists (the
+    axial difference is 0 elsewhere); mode 2 takes `lattice` = (lattice
+    slab k0l[j], slab k0l[j]+1), lerped at geo["fzl"][j].
+
+    Returns (vals, a, smp): the seven values [r, g, b, nx, ny, nz, depth]
+    (Hi, Wi) each, the opacity (Hi, Wi) (mode 0 leaves its cap at
+    1 - 1e-6 to the compositing) and the sample field. Each clamp that
+    the JAX package's gradient passes through as `jnp.clip` is `clip`
+    here, so the cotangents match it where values sit on a bound."""
+    lam = geo["lam"][j]
+    pg, qg, speed = geo["pg"], geo["qg"], geo["speed"]
+    wi = pg.shape[0]
+    smp_e, (t0, t1, v00, v01, v10, v11, fr, fcr) = _resample(
+        g0, g1, geo["fz"][j], lam, S, pg, geo["q_smp"], ortho)
+    smp = smp_e[1:-1] if fd_on else smp_e
+
+    rgba = _Classify.apply(smp, tab, S[S_VLO], S[S_VSCALE])
+    if mode >= 1:
+        # the JAX package shades the unclipped colour: a colour within
+        # [0, 1] passes this clamp with its whole cotangent
+        rgb = torch.clamp(rgba[..., :3], 0.0, 1.0)
+    else:
+        rgb = clip(rgba[..., :3], 0.0, 1.0)
+    a_raw = rgba[..., 3]
+
+    # opacity correction over the exact plane/ray overlap
+    seg_lo = torch.maximum(lam - S[S_HALF], geo["lin"])
+    seg_hi = torch.minimum(lam + S[S_HALF], geo["lout"])
+    dt_w = torch.clamp(seg_hi - seg_lo, min=0.0) * speed
+    kk = S[S_BASE] * dt_w
+    a_c = clip(a_raw, 0.0, 1.0 - 1e-7)
+    a = clip(1.0 - torch.exp(kk * torch.log1p(-a_c)), 0.0, 1.0)
+    a = torch.where(torch.abs(kk - 1.0) < 1e-7, clip(a_raw, 0.0, 1.0), a)
+    a = torch.where(dt_w > 0.0, a, 0.0)
+
+    vals = [rgb[..., 0], rgb[..., 1], rgb[..., 2]]
+    if mode >= 1:
+        a = torch.minimum(a, a.new_full((), 1.0 - 1e-6))
+        n_r, n_c = g0.shape
+        lamf = 1.0 if ortho else lam
+        if fd_on:
+            col = torch.arange(wi, device=smp.device)[None, :]
+            fwd = torch.roll(smp, -1, 1) - smp
+            bwd = smp - torch.roll(smp, 1, 1)
+            g1 = torch.where(col == 0, fwd, torch.where(
+                col >= wi - 1, bwd, 0.5 * (fwd + bwd))) / (S[S_DP] * lamf)
+            g2 = (smp_e[2:] - smp_e[:-2]) * (0.5 / (S[S_DQ] * lamf))
+        else:
+            gs = S[S_GS]
+            g1 = torch.where(fcr > 0, t1 - t0, 0.0) * (n_c / S[S_EX1])
+            d0 = (v10 - v00) * gs
+            d1 = (v11 - v01) * gs
+            g2 = torch.where(fr[:, None] > 0, d0 * (1.0 - fcr) + d1 * fcr,
+                             0.0) * (n_r / S[S_EX2])
+        ds = torch.where(has_prev, (smp - prev) / S[S_DZDLAM], 0.0)
+        k1 = S[S_K1O] if ortho else pg[None, :]
+        k2 = S[S_K2O] if ortho else qg[:, None]
+        ga = (ds - g1 * k1 - g2 * k2) * S[S_INVDA]
+        n1, n2, na = -g1, -g2, -ga
+        inv = torch.rsqrt(n1 * n1 + n2 * n2 + na * na + 1e-12)
+        total = torch.abs(S[S_LD1] * n1 + S[S_LD2] * n2
+                          + S[S_LDA] * na) * inv
+        for i in range(n_extra):
+            b0 = S_EL0 + 4 * i
+            ce = torch.abs(S[b0] * n1 + S[b0 + 1] * n2
+                           + S[b0 + 2] * na) * inv
+            total = total + 0.5 * ce * S[b0 + 3]
+        if mode == 2:
+            total = total * (1.0 - clip(
+                _shadow(lattice, geo["fzl"][j], S, pg, geo["q_smp"], lam,
+                        fd_on, ortho), 0.0, 1.0))
+        shade = 0.5 + total
+        vals = [clip(x * shade, 0.0, 1.0) for x in vals]
+        nu = (n1 * inv, n2 * inv, na * inv)
+        for r in range(3):
+            w = S[S_W00 + 3 * r:S_W00 + 3 * r + 3]
+            vals.append(clip(w[0] * nu[0] + w[1] * nu[1] + w[2] * nu[2],
+                             0.0, 1.0))
+    else:
+        vals += [torch.zeros_like(a)] * 3
+    vals.append(lam * speed)
+    return vals, a, smp
+
+
+def _shadow(lattice, fzl, S, pg, q_smp, lam, fd_on, ortho):
+    """The shadow lattice's alpha at the fan pixels of plane lam."""
+    l0, l1 = lattice
+    l_r, l_c = l0.shape
+    lp = l0 * (1.0 - fzl) + l1 * fzl
+    x1 = pg + S[S_DW1] * lam if ortho else S[S_EW1] + pg * lam
+    x2 = q_smp + S[S_DW2] * lam if ortho else S[S_EW2] + q_smp * lam
+    x2c = x2[1:-1] if fd_on else x2
+    lvr = torch.clamp((x2c - S[S_GLO2]) / S[S_GEX2] * l_r - 0.5, 0.0,
+                      l_r - 1.0)
+    lvc = torch.clamp((x1 - S[S_GLO1]) / S[S_GEX1] * l_c - 0.5, 0.0,
+                      l_c - 1.0)
+    lr0, lr1, lfr = _taps(lvr, l_r)
+    lc0, lc1, lfc = _taps(lvc, l_c)
+    lfr = lfr[:, None]
+    lfc = lfc[None, :]
+    p0, p1 = lp.index_select(0, lr0), lp.index_select(0, lr1)
+    return ((p0.index_select(1, lc0) * (1.0 - lfr)
+             + p1.index_select(1, lc0) * lfr) * (1.0 - lfc)
+            + (p0.index_select(1, lc1) * (1.0 - lfr)
+               + p1.index_select(1, lc1) * lfr) * lfc)
+
+
+def _slabs(grid_v, k: int, axial_flip: bool):
+    """Storage indices of the slab pair (k, k+1) of the traversal."""
+    n_a = grid_v.shape[0]
+    return (n_a - 1 - k, n_a - 2 - k) if axial_flip else (k, k + 1)
+
+
+def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
+                          n_slices: int, *, mode: int = 0, lgrid=None,
+                          k0l=None, n_extra: int = 0, majorant_v=None,
+                          term: bool = True, fd: bool = True,
+                          axial_flip: bool = False, block_planes=None,
+                          pixel_samples=None):
+    """The fused slice loop in PyTorch, arithmetic in the kernel's order
+    and per-block skipping/termination as the kernel does them. Same
+    arguments and result as `slice_composite` (without `stage_counts`)."""
+    f32 = torch.float32
+    dev = grid_v.device
+    n_a, n_r, n_c = grid_v.shape
+    hi, wi = qg.shape[0], pg.shape[0]
+    nbr, nbc = -(-hi // BLOCK_ROWS), -(-wi // BLOCK_COLS)
+    fd_on = mode >= 1 and fd
+    geo, ortho = _setup(scalars, grid_v.dtype, pg, qg, n_slices, mode,
+                        fd_on)
+    S = geo["sc"].unbind()
+    tab = rgba_tab.to(f32)
+    exit_t, lam_all = geo["exit"], geo["lam"]
+    k0_host = k0.tolist()
+    if mode == 2:
+        lg = lgrid.to(f32)
+        k0l_host = k0l.tolist()
 
     acc = torch.zeros((7, hi, wi), dtype=f32, device=dev)
-    trans = ones.clone()
+    trans = torch.ones((hi, wi), dtype=f32, device=dev)
     prev = torch.zeros((hi, wi), dtype=f32, device=dev)
     jpos = torch.zeros((hi, wi), dtype=torch.int32, device=dev)
     alive = torch.ones((nbr, nbc), dtype=torch.bool, device=dev)
@@ -461,8 +797,9 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
     maj = None if majorant_v is None else majorant_v.to(f32)
 
     def raw_active(j):
-        return _block_active(maj, S, pg, qg, k0_host[j], lam_all[j], n_a,
-                             n_r, n_c, fd_on, ortho, axial_flip)
+        return _block_active(maj, S, geo["pg"], geo["qg"], k0_host[j],
+                             lam_all[j], n_a, n_r, n_c, fd_on, ortho,
+                             axial_flip)
 
     raw_next = raw_active(0) if maj is not None and mode >= 1 else None
     for j in range(n_slices):
@@ -482,55 +819,15 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
             continue
         comp = _to_pixels(comp_blk, hi, wi)
 
-        # resample the plane (and the FD halo rows) into the fan
-        k = k0_host[j]
-        s0, s1 = ((n_a - 1 - k, n_a - 2 - k) if axial_flip else (k, k + 1))
-        g0 = grid_v[s0].to(f32)
-        g1_ = grid_v[s1].to(f32)
-        fz = fz_all[j]
-        vr = _vr_of(S, q_smp, lam, n_r, ortho)
-        vc = _vc_of(S, pg, lam, n_c, ortho)
-        x1 = pg + S[S_DW1] * lam if ortho else S[S_EW1] + pg * lam
-        x2 = q_smp + S[S_DW2] * lam if ortho else S[S_EW2] + q_smp * lam
-        ir0, ir1, fr = _taps(vr, n_r)
-        ic0, ic1, fc = _taps(vc, n_c)
-
-        def tap(ri, ci):
-            ri, ci = ri[:, None], ci[None, :]
-            return g0[ri, ci] * (1.0 - fz) + g1_[ri, ci] * fz
-
-        v00, v01, v10, v11 = (tap(ir0, ic0), tap(ir0, ic1), tap(ir1, ic0),
-                              tap(ir1, ic1))
-        wr0 = ((1.0 - fr) * gs)[:, None]
-        wr1 = (fr * gs)[:, None]
-        t0 = v00 * wr0 + v10 * wr1
-        t1 = v01 * wr0 + v11 * wr1
-        fcr = fc[None, :]
-        smp_e = t0 * (1.0 - fcr) + t1 * fcr
-        smp = smp_e[1:-1] if fd_on else smp_e
-        x2c = x2[1:-1] if fd_on else x2
-
-        # classify: two-tap nodal lookup
-        v = torch.clamp((smp - S[S_VLO]) * S[S_VSCALE], 0.0, 1.0)
-        cc = v * (n_tab - 1)
-        i0f = torch.clamp(torch.floor(cc), 0.0, n_tab - 1.0)
-        f = (cc - i0f)[..., None]
-        i0 = i0f.long()
-        rgba = tab[i0] * (1.0 - f) + tab[torch.clamp(i0 + 1, max=n_tab - 1)
-                                         ] * f
-        rgb = torch.clamp(rgba[..., :3], 0.0, 1.0)
-        a_raw = rgba[..., 3]
-
-        # opacity correction over the exact plane/ray overlap
-        seg_lo = torch.maximum(lam - S[S_HALF], l_in)
-        seg_hi = torch.minimum(lam + S[S_HALF], l_out)
-        dt_w = torch.clamp(seg_hi - seg_lo, min=0.0) * speed
-        kk = S[S_BASE] * dt_w
-        a_c = torch.clamp(a_raw, 0.0, 1.0 - 1e-7)
-        a = torch.clamp(1.0 - torch.exp(kk * torch.log1p(-a_c)), 0.0, 1.0)
-        a = torch.where(torch.abs(kk - 1.0) < 1e-7,
-                        torch.clamp(a_raw, 0.0, 1.0), a)
-        a = torch.where(dt_w > 0.0, a, 0.0)
+        s0, s1 = _slabs(grid_v, k0_host[j], axial_flip)
+        lattice = None
+        if mode == 2:
+            ka = k0l_host[j]
+            lattice = (lg[ka], lg[min(ka + 1, lg.shape[0] - 1)])
+        vals, a, smp = plane_step(
+            grid_v[s0].to(f32), grid_v[s1].to(f32), j, tab, S, geo,
+            mode=mode, fd_on=fd_on, ortho=ortho, n_extra=n_extra, prev=prev,
+            has_prev=jpos > 0, lattice=lattice)
         a = torch.clamp(a, max=1.0 - 1e-6)
         need = comp & (trans > T_EPS) & (a > 0.0)
         n_need = n_need + need.to(torch.int32)
@@ -538,64 +835,6 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
             n_need = n_need + (need & (jpos > 0) & ~last_need).to(
                 torch.int32)
         last_need = torch.where(comp, need, last_need)
-
-        vals = [rgb[..., 0], rgb[..., 1], rgb[..., 2]]
-        if mode >= 1:
-            lamf = 1.0 if ortho else lam
-            if fd_on:
-                fwd = torch.roll(smp, -1, 1) - smp
-                bwd = smp - torch.roll(smp, 1, 1)
-                g1 = torch.where(col == 0, fwd, torch.where(
-                    col >= wi - 1, bwd, 0.5 * (fwd + bwd))) / (S[S_DP] * lamf)
-                g2 = (smp_e[2:] - smp_e[:-2]) * (0.5 / (S[S_DQ] * lamf))
-            else:
-                g1 = torch.where(fcr > 0, t1 - t0, 0.0) * (n_c / S[S_EX1])
-                d0 = (v10 - v00) * gs
-                d1 = (v11 - v01) * gs
-                g2 = torch.where(fr[:, None] > 0,
-                                 d0 * (1.0 - fcr) + d1 * fcr,
-                                 0.0) * (n_r / S[S_EX2])
-            ds = torch.where(jpos > 0, (smp - prev) / S[S_DZDLAM], 0.0)
-            k1 = S[S_K1O] if ortho else p2
-            k2 = S[S_K2O] if ortho else q2
-            ga = (ds - g1 * k1 - g2 * k2) * S[S_INVDA]
-            n1, n2, na = -g1, -g2, -ga
-            inv = torch.rsqrt(n1 * n1 + n2 * n2 + na * na + 1e-12)
-            total = torch.abs(S[S_LD1] * n1 + S[S_LD2] * n2
-                              + S[S_LDA] * na) * inv
-            for i in range(n_extra):
-                b0 = S_EL0 + 4 * i
-                ce = torch.abs(S[b0] * n1 + S[b0 + 1] * n2
-                               + S[b0 + 2] * na) * inv
-                total = total + 0.5 * ce * S[b0 + 3]
-            if mode == 2:
-                ka = k0l_host[j]
-                lp = lg[ka] * (1.0 - fzl_all[j]) + lg[min(ka + 1, la - 1)
-                                                       ] * fzl_all[j]
-                lvr = torch.clamp((x2c - S[S_GLO2]) / S[S_GEX2] * l_r - 0.5,
-                                  0.0, l_r - 1.0)
-                lvc = torch.clamp((x1 - S[S_GLO1]) / S[S_GEX1] * l_c - 0.5,
-                                  0.0, l_c - 1.0)
-                lr0, lr1, lfr = _taps(lvr, l_r)
-                lc0, lc1, lfc = _taps(lvc, l_c)
-                lfr = lfr[:, None]
-                lfc = lfc[None, :]
-                r_0, r_1 = lr0[:, None], lr1[:, None]
-                sh = ((lp[r_0, lc0[None]] * (1.0 - lfr)
-                       + lp[r_1, lc0[None]] * lfr) * (1.0 - lfc)
-                      + (lp[r_0, lc1[None]] * (1.0 - lfr)
-                         + lp[r_1, lc1[None]] * lfr) * lfc)
-                total = total * (1.0 - torch.clamp(sh, 0.0, 1.0))
-            shade = 0.5 + total
-            vals = [torch.clamp(x * shade, 0.0, 1.0) for x in vals]
-            nu = (n1 * inv, n2 * inv, na * inv)
-            for r in range(3):
-                w = S[S_W00 + 3 * r:S_W00 + 3 * r + 3]
-                vals.append(torch.clamp(w[0] * nu[0] + w[1] * nu[1]
-                                        + w[2] * nu[2], 0.0, 1.0))
-        else:
-            vals += [torch.zeros_like(a)] * 3
-        vals.append(lam * speed)
 
         aw = trans * a
         new_acc = acc + aw[None] * torch.stack(vals)

@@ -10,7 +10,9 @@ emission-absorption integral with samples at plane centers.
 
 The slice loop is one call of `ops.swslice.slice_composite`: the CUDA
 kernel for a volume on the card, its plain PyTorch version for one on the
-CPU.
+CPU. The frame is differentiable: the slice loop's backward is the
+bounded-memory analytic adjoint, and the warp and the rest are plain
+tensor ops that autograd differentiates.
 
 The plan keeps the fields of `ovr_tpu`'s `SwStatic` that change results;
 the TPU's VMEM tiling fields have no counterpart here (README, "TPU knobs
@@ -324,7 +326,8 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     zyx = vol.grid.shape
     if (macrocells is not None and cfg.sw_skip
             and tuple(macrocells.vol_dims) == (zyx[2], zyx[1], zyx[0])):
-        maj_v = _volume_view(macrocells.majorant.float(), axis,
+        # a control input: no cotangent flows into the majorants
+        maj_v = _volume_view(macrocells.majorant.detach().float(), axis,
                              1).contiguous()
     n_a = grid.shape[0]
     lo = vol.world_lo

@@ -182,8 +182,14 @@ def test_stage_counts_need_the_kernel():
                                 stage_counts=torch.zeros(2, dtype=torch.int32))
 
 
-def test_requires_grad_raises():
+def test_requires_grad_gives_a_gradient():
+    """The call that raised before the backward existed now returns a
+    finite grid gradient, through the plain version (no launch)."""
     args, kw = capture(_scene(n=24), "none")
     grid = args[0].float().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        swslice.slice_composite(grid, *args[1:], **kw)
+    before = swslice.LAUNCHES
+    out = swslice.slice_composite(grid, *args[1:], **kw)
+    (out[0:3] ** 2).sum().backward()
+    assert swslice.LAUNCHES == before
+    assert grid.grad.shape == grid.shape
+    assert torch.isfinite(grid.grad).all() and grid.grad.abs().max() > 0
