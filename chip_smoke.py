@@ -38,7 +38,24 @@
    gradients and holds the TF alpha's against a central directional
    difference; then splits a reverse sweep (the diffuse frame cut to 32
    planes) into device and host time with torch.profiler;
-6. prints one JSON line of backward measurements and one of kernel
+6. runs the ray march (plain PyTorch; the JAX package's march is XLA):
+   (a) at 64^3 (bench and sparse fields; perspective, orthographic and
+   a wide-FOV interior eye that method="auto" must send to the march;
+   none, diffuse, shadow from the lattice built inside `api.render` and
+   from the exact shadow march, ssh; macrocells, adaptive steps, two
+   extra directional lights and a point light, jitter_rays from a CPU
+   generator seed, optical flow) it holds the card's frames against the
+   CPU's, `fast_math` (march_while) against the march bit for bit, and
+   the gradients of the grid, the TF and the camera (in float64)
+   against the CPU's; (b) renders the headline volume through
+   method="march" at 1920x1080, rate 1024 (fast_math, macrocells, as
+   bench.py's BENCH_METHOD=march) in diffuse and shadow, and prints
+   frame ms, Mrays/s, the steps run, launches and peak memory, with a
+   torch.profiler split of the frame cut to 32 steps; (c) holds the
+   slice kernel against the march (128x72, rate 256): PSNR >= 35 dB;
+   (d) renders the wide-FOV interior eye at 1080p through
+   method="auto", which must fall back to the march;
+7. prints one JSON line each of backward, march and kernel
    measurements, then, last, the device line {"ok": true, "device":
    {...}}.
 
@@ -566,20 +583,24 @@ class PlainCalls:
 def loss_and_grads(scene, cfg, wrt, **render_kw):
     """bench.py's backward loss, mean(rgba^2) + mean(grad^2), of one
     `api.render` frame, and its gradients with respect to the scene
-    tensors named in `wrt` (grid, alpha, color, value_range). The forward
-    ends at CUDA event `marks[0]`, the backward at `marks[1]` (on the
-    card)."""
+    tensors named in `wrt` (grid, alpha, color, value_range, from_). The
+    forward ends at CUDA event `marks[0]`, the backward at `marks[1]` (on
+    the card)."""
     import torch
     from ovr_tpu_torch import api
     vals = {"grid": scene.volume.grid, "alpha": scene.tfn.alpha,
-            "color": scene.tfn.color, "value_range": scene.tfn.value_range}
+            "color": scene.tfn.color, "value_range": scene.tfn.value_range,
+            "from_": scene.camera.from_}
     vals = {k: vals[k].detach().requires_grad_(True) for k in wrt}
-    tfn = dataclasses.replace(scene.tfn, **{k: v for k, v in vals.items()
-                                            if k != "grid"})
+    tfn = dataclasses.replace(scene.tfn, **{
+        k: v for k, v in vals.items() if k in ("alpha", "color",
+                                               "value_range")})
     vol = dataclasses.replace(scene.volume,
                               grid=vals.get("grid", scene.volume.grid))
-    frame = api.render(dataclasses.replace(scene, volume=vol, tfn=tfn), cfg,
-                       **render_kw)
+    cam = dataclasses.replace(scene.camera,
+                              from_=vals.get("from_", scene.camera.from_))
+    frame = api.render(dataclasses.replace(scene, volume=vol, tfn=tfn,
+                                           camera=cam), cfg, **render_kw)
     loss = (frame.rgba ** 2).mean() + (frame.grad ** 2).mean()
     cuda = loss.is_cuda
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -645,8 +666,9 @@ FD_EPS = 1e-2  # step of the directional difference in the TF alpha
 
 def backward_headline(grid, smi):
     """The headline frame's backward (bench.py's BENCH_BACKWARD loss,
-    gradients of the grid and the TF alpha) per shading: 1 warm-up and 3
-    timed steps (1 if a step takes over 20 s), CUDA events around the
+    gradients of the grid and the TF alpha) per shading: 1 warm-up and 1
+    timed step (a step takes 17-32 s; since the march phase was added
+    the run keeps within its time by timing one), CUDA events around the
     forward and the backward; checks the gradients and holds the TF
     alpha's against a central directional difference."""
     import torch
@@ -673,7 +695,7 @@ def backward_headline(grid, smi):
         loss, g, _ = loss_and_grads(scene, cfg, ("grid", "alpha"), **kw)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        steps = 3 if first_s <= 20.0 else 1
+        steps = 1
         torch.cuda.reset_peak_memory_stats()
         fwd, bwd = [], []
         for _ in range(steps):
@@ -715,7 +737,8 @@ def backward_headline(grid, smi):
         results[shading] = r
         log(f"backward headline {shading:7s} 1920x1080 1024^3 bf16: step "
             f"{', '.join(f'{x:.0f}' for x in step_ms)} ms ({steps} timed "
-            f"step{'s' if steps > 1 else ', the first took over 20 s'}; "
+            f"step{'s' if steps > 1 else ''} after a warm-up of "
+            f"{first_s:.1f} s; "
             f"forward {', '.join(f'{x:.1f}' for x in fwd)} ms, backward "
             f"{', '.join(f'{x:.0f}' for x in bwd)} ms), {r['mrays_s']:.3f} "
             f"Mrays/s fwd+bwd, peak memory {peak / 2**30:.2f} GiB, "
@@ -799,6 +822,331 @@ def backward_profile(scene, mc):
                               device_ms=d) for d, c, h, k, s in ops])
 
 
+# ---------------------------------------------------------------------------
+# the march (no kernel: plain PyTorch, as the JAX package's is XLA)
+# ---------------------------------------------------------------------------
+
+# (field, camera, shading, lattice shadows) of the card-vs-CPU cases; the
+# wide-FOV interior eye goes through method="auto", which must fall back.
+# The eyes sit off the volume's symmetry planes (march_parity says why).
+MARCH_CASES = (
+    ("bench", "persp", "none", True),
+    ("bench", "persp", "diffuse", True),
+    ("sparse", "ortho", "diffuse", True),
+    ("bench", "wide", "diffuse", True),
+    ("bench", "persp", "shadow", True),  # the lattice built inline
+    ("sparse", "persp", "shadow", False),  # the exact shadow march
+    ("bench", "ortho", "ssh", True),
+    ("bench", "wide", "ssh", False),
+)
+MARCH_WRT = ("grid", "alpha", "color", "value_range", "from_")
+WIDE = dict(from_=(0.5, 0.5, 0.5), at=(0.9, 0.75, 0.5), fovy=130.0)
+MARCH_CAMERAS = {
+    "persp": dict(from_=(0.53, 0.46, -1.6), at=(0.5, 0.52, 0.5), fovy=45.0),
+    "ortho": dict(from_=(0.47, 0.54, -2.0), at=(0.52, 0.49, 0.5),
+                  height=1.3, kind="orthographic"),
+    "wide": dict(WIDE, from_=(0.48, 0.53, 0.51)),
+}
+
+
+def march_scene(grid, kind, cam):
+    """make_scene with two extra directional lights and a point light,
+    seen from MARCH_CAMERAS[cam] ("wide": a wide-FOV interior eye)."""
+    from ovr_tpu_torch.core.scene import Camera, Light
+    scene = make_scene(grid, kind, "persp", 2)
+    point = Light.create(kind="point", position=(1.3, 1.1, -0.5),
+                         intensity=0.8, device=grid.device)
+    return dataclasses.replace(
+        scene, lights=scene.lights + (point,),
+        camera=Camera.create(**MARCH_CAMERAS[cam], device=grid.device))
+
+
+def in_f64(scene):
+    """The scene with every floating-point tensor in float64."""
+    def cast(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).double()
+            for f in dataclasses.fields(obj)
+            if getattr(getattr(obj, f.name), "is_floating_point",
+                       lambda: False)()})
+    return dataclasses.replace(
+        scene, volume=cast(scene.volume), tfn=cast(scene.tfn),
+        light=cast(scene.light), camera=cast(scene.camera),
+        lights=tuple(cast(lt) for lt in scene.lights))
+
+
+def march_parity():
+    """Phase (a): the march on the card against the same march on CPU
+    copies, 64^3 f32, 64x48, rate 64, macrocells on, adaptive_scale 4,
+    two extra directional lights and a point light, jitter_rays from one
+    CPU generator seed, flow against a moved camera: rgba and normals
+    within 1e-4, depth and flow within 5e-4; march_while gives the
+    march's bits on the card. The gradients of the grid, the TF's alpha,
+    colour and value range and the camera's from_ are held within 1e-3
+    of the CPU's largest element in float64 on both devices: shaded
+    normals make them ill-conditioned in float32 (on the CPU the float32
+    grid gradient of the bench field in diffuse is 8.3e-2 of its largest
+    element from the float64 one; card against CPU in float32 up to
+    1.8e-3, PERF.md). The eyes sit
+    off the volume's symmetry planes: from a symmetric eye some samples
+    sit on kinks of the trilinear interpolation, where the gradient
+    jumps (moving the eye by 1e-13 changes it by 5.8e-3). Returns the
+    largest errors."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.core.scene import Camera
+    from ovr_tpu_torch.render import accel
+    worst = dict(frame=0.0, grad=0.0)
+    for kind, cam, shading, lattice in MARCH_CASES:
+        frames, grads = [], []
+        card_grid = field(64, kind, torch.device("cuda"))
+        for dev in ("cuda", "cpu"):
+            grid = card_grid.to(dev)  # the CPU's is a copy of the card's
+            scene = march_scene(grid, kind, cam)
+            cfg = api.RenderConfig(
+                width=64, height=48, sampling_rate=64.0, shading=shading,
+                method="auto" if cam == "wide" else "march",
+                shadow_grid=lattice, use_macrocells=True, adaptive_scale=4.0,
+                jitter_rays=True).resolved(scene)
+            if cfg.sw is not None:
+                raise SystemExit(f"march {kind} {cam} {shading}: auto did "
+                                 f"not fall back to the march")
+            for f64 in (False, True):
+                sc = in_f64(scene) if f64 else scene
+                last = dataclasses.replace(sc.camera,
+                                           from_=sc.camera.from_ + 0.02)
+                mc = accel.build_macrocells(sc.volume.grid, sc.tfn.alpha,
+                                            sc.tfn.value_range)
+                c = dataclasses.replace(
+                    cfg, dtype=torch.float64 if f64 else torch.float32)
+
+                def kw():
+                    return dict(macrocells=mc, last_camera=last,
+                                generator=torch.Generator().manual_seed(7))
+
+                if f64:
+                    grads.append(loss_and_grads(sc, c, MARCH_WRT, **kw())[1])
+                    continue
+                frame = api.render(sc, c, **kw())
+                frames.append(frame)
+                if dev == "cuda":
+                    if not all(x.is_cuda for x in (frame.rgba, frame.grad,
+                                                   frame.depth, frame.flow)):
+                        raise SystemExit("the march left the card")
+                    fast = api.render(sc, dataclasses.replace(
+                        c, fast_math=True), **kw())
+                    same = all(torch.equal(getattr(fast, k),
+                                           getattr(frame, k))
+                               for k in ("rgba", "grad", "depth", "flow"))
+        errs = {k: float((getattr(frames[0], k).cpu()
+                          - getattr(frames[1], k)).abs().max())
+                for k in ("rgba", "grad", "depth", "flow")}
+
+        g64 = {k: float((grads[0][k].cpu() - grads[1][k]).abs().max()
+                        / grads[1][k].abs().max()) for k in MARCH_WRT}
+        ok = (errs["rgba"] <= 1e-4 and errs["grad"] <= 1e-4
+              and errs["depth"] <= 5e-4 and errs["flow"] <= 5e-4 and same
+              and all(e <= 1e-3 for e in g64.values())
+              and float(frames[1].rgba[..., 3].max()) > 0.05)
+        worst["frame"] = max([worst["frame"]] + list(errs.values()))
+        worst["grad"] = max([worst["grad"]] + list(g64.values()))
+        log(f"march parity 64^3 {kind} {cam} {shading}"
+            f"{'' if lattice else ' (exact shadows)'}: card vs CPU, f32 "
+            f"frame " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+            + f"; march_while {'equals' if same else 'DIFFERS from'} the "
+            f"march; gradient, normalised, f64: " + ", ".join(
+                f"{k} {e:.2e}" for k, e in g64.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the march on the card disagrees with the CPU's")
+    return worst
+
+
+def march_cfg(scene, shading, width=1920, height=1080, rate=1024.0,
+              method="march", **kw):
+    """bench.py's BENCH_METHOD=march config: fast_math, macrocells."""
+    from ovr_tpu_torch import api
+    kw = dict(dict(fast_math=True, use_macrocells=True), **kw)
+    return api.RenderConfig(
+        width=width, height=height, spp=1, sampling_rate=rate,
+        shading=shading, method=method, **kw).resolved(scene)
+
+
+def check_frame(label, frame, width, height, min_alpha=0.5):
+    import torch
+    rgba = frame.rgba
+    a = rgba[..., 3]
+    ok = (rgba.is_cuda and tuple(rgba.shape) == (height, width, 4)
+          and bool(torch.isfinite(rgba).all() and torch.isfinite(
+              frame.grad).all() and torch.isfinite(frame.depth).all())
+          and float(a.min()) >= 0.0 and float(a.max()) <= 1.0
+          and float(a.max()) > min_alpha)
+    if not ok:
+        raise SystemExit(f"{label} frame failed its checks")
+
+
+def march_profile(scene, mc, steps):
+    """Kernel launches and device time of the headline diffuse march cut
+    to `steps` steps (march, not march_while): wall ms without the
+    profiler, then under torch.profiler the launches and the kernels'
+    device time, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ovr_tpu_torch import api
+    cfg = march_cfg(scene, "diffuse", max_steps=steps, fast_math=False)
+    api.render(scene, cfg, macrocells=mc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.render(scene, cfg, macrocells=mc)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.render(scene, cfg, macrocells=mc)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type ==
+               DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                  for e in kernels), reverse=True)[:8]
+    return dict(steps=steps, wall_ms=wall_ms, device_ms=busy,
+                launches=sum(e.count for e in kernels),
+                top=[dict(kernel=k[:120], device_ms=ms, count=c)
+                     for ms, c, k in top])
+
+
+def march_headline(grid, smi):
+    """Phase (b): the headline volume through method="march" at 1920x1080,
+    rate 1024, in diffuse and in shadow (the lattice built once, as
+    bench.py does): 1 warm-up and 3 timed frames (1 if a frame takes
+    over 20 s) with CUDA events, peak memory, the steps the loop ran;
+    launches per frame and the device/host split from torch.profiler on
+    the frame cut to 16 and 32 steps."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.render import accel
+    from ovr_tpu_torch.render import integrator as ig
+    scene = make_scene(grid, "bench", "persp")
+    mc = accel.build_macrocells(grid, scene.tfn.alpha,
+                                scene.tfn.value_range)
+    p16, p32 = march_profile(scene, mc, 16), march_profile(scene, mc, 32)
+    per_step = (p32["launches"] - p16["launches"]) / 16
+    setup = p16["launches"] - 16 * per_step
+    log(f"march profile, the diffuse headline cut to 32 steps: "
+        f"{p32['wall_ms']:.1f} ms wall ({p32['wall_ms'] / 32:.2f} ms a "
+        f"step), {p32['device_ms']:.1f} ms of kernels "
+        f"({100 * p32['device_ms'] / p32['wall_ms']:.1f}% of the wall; the "
+        f"rest is host time, launches included), {p32['launches']} kernel "
+        f"launches; {per_step:g} launches a step and {setup:g} outside "
+        f"the loop (16- and 32-step cuts). Kernels by device time:")
+    for k in p32["top"]:
+        log(f"  {k['device_ms']:9.2f} ms  x{k['count']:<6d} "
+            f"{k['kernel'][:90]}")
+    results = {}
+    for shading in ("diffuse", "shadow"):
+        cfg = march_cfg(scene, shading)
+        lg = None
+        if shading == "shadow":
+            with torch.no_grad():
+                lg = api.build_light_grid(scene, cfg)
+        n0 = ig.STEPS
+        t0 = time.perf_counter()
+        frame = api.render(scene, cfg, macrocells=mc, light_grid=lg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        steps = ig.STEPS - n0
+        check_frame(f"march {shading}", frame, 1920, 1080)
+        alpha_mean = float(frame.rgba[..., 3].mean())
+        del frame
+        reps = 3 if first_s <= 20.0 else 1
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(reps):
+            ms.append(cuda_ms(lambda: api.render(
+                scene, cfg, macrocells=mc, light_grid=lg), 1))
+        peak = torch.cuda.max_memory_allocated()
+        med = sorted(ms)[len(ms) // 2]
+        r = dict(frame_ms=ms, first_s=first_s, steps=steps,
+                 max_steps=cfg.max_steps, peak_bytes=peak,
+                 mrays_s=1920 * 1080 / (med * 1e-3) / 1e6,
+                 launches_per_frame=setup + per_step * steps,
+                 alpha_mean=alpha_mean)
+        results[shading] = r
+        log(f"march headline {shading:7s} 1920x1080 1024^3 bf16 rate 1024: "
+            f"frame {', '.join(f'{x:.0f}' for x in ms)} ms ({reps} timed "
+            f"after a warm-up of {first_s:.1f} s), {r['mrays_s']:.3f} "
+            f"Mrays/s, {steps} steps run of {cfg.max_steps}, ~"
+            f"{r['launches_per_frame']:.0f} launches a frame ({per_step:g} "
+            f"a step), peak memory {peak / 2**30:.2f} GiB, mean alpha "
+            f"{alpha_mean:.3f}; {smi}")
+    return results, dict(per_step=per_step, setup=setup, profile_32=p32,
+                         profile_16_launches=p16["launches"]), scene, mc
+
+
+def march_oracle(scene, mc):
+    """Phase (c): the slice kernel (method="shearwarp") against the march
+    on the headline volume, diffuse, 128x72, rate 256: PSNR of the
+    premultiplied rgb (apps/render_batch.py --ab) >= 35 dB, mean alphas
+    within 1e-3."""
+    import math
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    out = {}
+    for method in ("shearwarp", "march"):
+        cfg = march_cfg(scene, "diffuse", 128, 72, 256.0, method=method)
+        n0 = swslice.LAUNCHES
+        out[method] = api.render(scene, cfg, macrocells=mc).rgba
+        if (swslice.LAUNCHES - n0 == 1) != (method == "shearwarp"):
+            raise SystemExit(f"oracle: {method} launched the slice kernel "
+                             f"{swslice.LAUNCHES - n0} times")
+    a, b = out["march"], out["shearwarp"]
+    mse = float(torch.mean((a[..., :3] * a[..., 3:] - b[..., :3] * b[..., 3:])
+                           ** 2))
+    psnr = 10.0 * math.log10(1.0 / max(mse, 1e-12))
+    da = abs(float(a[..., 3].mean()) - float(b[..., 3].mean()))
+    ok = psnr >= 35.0 and da <= 1e-3
+    log(f"march oracle 1024^3 bf16 diffuse 128x72 rate 256: slice kernel vs "
+        f"march PSNR {psnr:.2f} dB (mse {mse:.3e}), mean alpha "
+        f"{float(b[..., 3].mean()):.5f} vs {float(a[..., 3].mean()):.5f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the slice kernel disagrees with the march oracle")
+    return dict(psnr_db=psnr, mse=mse, mean_alpha_diff=da)
+
+
+def march_fallback(grid, mc, smi):
+    """Phase (d): method="auto" from a wide-FOV interior eye on the
+    headline volume at 1080p falls back to the march on the card."""
+    import torch
+    from ovr_tpu_torch.core.scene import Camera
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import integrator as ig
+    scene = dataclasses.replace(make_scene(grid, "bench", "persp"),
+                                camera=Camera.create(**WIDE,
+                                                     device=grid.device))
+    cfg = march_cfg(scene, "diffuse", method="auto")
+    if cfg.sw is not None:
+        raise SystemExit("auto resolved a shear-warp plan for the wide eye")
+    n0, s0 = swslice.LAUNCHES, ig.STEPS
+    t0 = time.perf_counter()
+    frame = api.render(scene, cfg, macrocells=mc)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check_frame("fallback", frame, 1920, 1080)
+    if swslice.LAUNCHES != n0:
+        raise SystemExit("the fallback launched the slice kernel")
+    r = dict(frame_s=sec, steps=ig.STEPS - s0,
+             alpha_mean=float(frame.rgba[..., 3].mean()))
+    log(f"march fallback: auto from the wide-FOV interior eye, 1920x1080 "
+        f"1024^3 bf16 diffuse: cfg.sw None, march frame {sec:.1f} s "
+        f"(first call, one frame), {r['steps']} steps, finite, mean alpha "
+        f"{r['alpha_mean']:.3f}; {smi}")
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -854,6 +1202,17 @@ def main() -> int:
     if bwd_launches < 1:
         raise SystemExit("the backward path never launched the slice kernel")
     prof = backward_profile(scene, mc)
+    del scene, mc
+
+    t_march = time.perf_counter()
+    mpar = march_parity()
+    log(f"march parity: all cases agree, largest frame difference "
+        f"{mpar['frame']:.2e}, gradient (float64) {mpar['grad']:.2e} "
+        f"({time.perf_counter() - t0:.0f} s so far)")
+    mhead, mlaunch, scene, mc = march_headline(big, smi)
+    oracle = march_oracle(scene, mc)
+    fallback = march_fallback(big, mc, smi)
+    log(f"march phase {time.perf_counter() - t_march:.0f} s")
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"backward": {
         "shape": "1024^3 bf16, 1920x1080, 1024 planes, macrocells on; loss "
@@ -861,6 +1220,11 @@ def main() -> int:
                  "the TF alpha",
         "launches": bwd_launches, "parity_64_max_norm_err": bwd_worst,
         "modes": bwd, "profile_diffuse": prof, "card": smi}}))
+    print(json.dumps({"march": {
+        "shape": "1024^3 bf16, 1920x1080, rate 1024, method march, "
+                 "fast_math, macrocells on (no kernel: plain PyTorch)",
+        "parity_64": mpar, "headline": mhead, "launches": mlaunch,
+        "oracle": oracle, "fallback": fallback, "card": smi}}))
     entry = {
         "name": "swslice",
         "route": "cuda",

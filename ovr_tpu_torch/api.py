@@ -1,32 +1,39 @@
-"""Public rendering API (port of `ovr_tpu.api`, shear-warp branch).
+"""Public rendering API (port of `ovr_tpu.api`).
 
     cfg = RenderConfig(width=1920, height=1080, method="auto",
                        shading="diffuse").resolved(scene)
     frame = render(scene, cfg, macrocells=mc)
 
-`render` runs the shear-warp fast path; parts of `ovr_tpu.api` that
-later slices of the port bring raise NotImplementedError naming them
-(ROADMAP.md, "Queue next").
+`render` takes the shear-warp fast path where a plan resolves
+(`method="shearwarp"`, or `"auto"` on an eligible view) and the ray
+march otherwise (`method="march"`, the default, and `"auto"`'s
+fallback). `Renderer` is the stateful facade with setters, `commit`,
+`render`, `swap` and `mapframe`; `accumulate` and `variance_of` keep
+progressive sums. Features that later slices of the port bring raise
+NotImplementedError naming their ROADMAP item ("Queue next").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ovr_tpu_torch.core.sampling import safe_normalize
-from ovr_tpu_torch.core.scene import Camera, Scene
+from ovr_tpu_torch.core.scene import Camera, Scene, TransferFunction
 from ovr_tpu_torch.render import accel
 from ovr_tpu_torch.render import integrator as ig
 from ovr_tpu_torch.render import lightgrid, shearwarp
+from ovr_tpu_torch.render.camera import (blended_flow, camera_basis,
+                                         generate_rays, pixel_screen_coords)
 
-_SHADING_EXTRAS = "the slice after the backward (sw_bf16, point lights, " \
-    "jitter_rays, optical flow)"
-_MARCH = "the march slice (render/integrator.py march)"
-_LATER = "a later slice of ROADMAP Queue 1"
+_SW_OPTIONS = ("a later slice of the port (ROADMAP Queue next item 2: "
+               "sw_bf16, point lights and more than 4 extra lights in "
+               "shear-warp)")
+_LATER = "a later slice of the port (ROADMAP Queue next item {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +43,8 @@ class RenderConfig:
     kernel variants with identical results and change nothing here.
     `ovr_tpu`'s `sw_pallas` (the Pallas kernel or the XLA slice loop) has
     no counterpart: the slice loop is the kernel on the card and its plain
-    version on the CPU."""
+    version on the CPU. `ray_chunk` stays None unless set (the JAX
+    package sets one only on a TPU)."""
 
     width: int = 512
     height: int = 512
@@ -61,14 +69,14 @@ class RenderConfig:
     pt_dense: bool = False
     pt_lattice: int = 128
     pt_dirs: int = 14
-    use_macrocells: bool = False
-    adaptive_scale: float = 1.0
-    jitter_rays: bool = False
-    fast_math: bool = False
+    use_macrocells: bool = False  # march: empty-space skipping
+    adaptive_scale: float = 1.0  # march: > 1 stretches steps by 1/majorant
+    jitter_rays: bool = False  # random t0 offset (march) / plane offset
+    fast_math: bool = False  # march_while: stop when all rays are done
     shadow_grid: bool = True  # shadows from the precomputed lattice
     shadow_grid_res: int = 0  # lattice cap per axis; 0 = clamp(n/4, 128, 512)
-    shading_scale: float = 0.8
-    ray_chunk: Optional[int] = None
+    shading_scale: float = 0.8  # 'ssh' deferred-shade blend weight
+    ray_chunk: Optional[int] = None  # march rays per chunk (None: all)
     iso_steps: int = 128
     geometry_chunk: int = 256
     neural_proxy: bool = True
@@ -112,7 +120,8 @@ class RenderConfig:
 class Frame:
     """Rendered frame: rgba (H, W, 4) straight alpha, grad (H, W, 3)
     camera-space shaded normal, depth (H, W) alpha-blended hit distance,
-    flow (None until the flow slice lands)."""
+    flow (H, W, 2) screen-space optical flow against `last_camera` (None
+    without one)."""
 
     rgba: torch.Tensor
     grad: torch.Tensor
@@ -120,100 +129,483 @@ class Frame:
     flow: Any = None
 
 
+def _extra_lights(scene: Scene) -> dict:
+    """scene.lights as the ShadeContext's light arrays: directional and
+    sunSky lights shade like the primary (|N.L| I), point lights with
+    inverse-square falloff; the intensity folds in the colour's mean and
+    the primary's implicit 2. Ambient lights are ignored here."""
+    dirs, dir_i, pts, pt_i = [], [], [], []
+    for lt in scene.lights:
+        mean_c = torch.mean(lt.color)
+        if lt.kind in ("directional", "sunsky"):
+            dirs.append(safe_normalize(lt.direction))
+            dir_i.append(2.0 * lt.intensity * mean_c)
+        elif lt.kind == "point":
+            pts.append(lt.position)
+            pt_i.append(2.0 * lt.intensity * mean_c)
+    out = {}
+    if dirs:
+        out["extra_dirs"] = torch.stack(dirs)
+        out["extra_dir_intens"] = torch.stack(dir_i)
+    if pts:
+        out["point_pos"] = torch.stack(pts)
+        out["point_intens"] = torch.stack(pt_i)
+    return out
+
+
+def _shade_ctx(scene: Scene, camera: Camera, cfg: RenderConfig,
+               light_alpha=None) -> ig.ShadeContext:
+    _, direction, horizontal, vertical = camera_basis(camera, cfg.width,
+                                                      cfg.height)
+    wtc = torch.stack([safe_normalize(horizontal), safe_normalize(vertical),
+                       -direction])
+    return ig.ShadeContext(
+        light_dir=safe_normalize(scene.light.direction), wtc=wtc,
+        world_lo=scene.volume.world_lo, world_hi=scene.volume.world_hi,
+        light_alpha=light_alpha, **_extra_lights(scene))
+
+
+def _leaves(scene: Scene, cfg: RenderConfig):
+    vol = scene.volume
+    return (vol.grid, scene.tfn.color, scene.tfn.alpha,
+            scene.tfn.value_range,
+            cfg.base_rate * torch.ones((), dtype=cfg.dtype,
+                                       device=vol.grid.device))
+
+
+def _march_cfg(cfg: RenderConfig) -> ig.MarchConfig:
+    return ig.MarchConfig(
+        max_steps=cfg.max_steps or 1, shading=cfg.shading,
+        shadow_scale=cfg.shadow_scale,
+        shadow_max_steps=cfg.shadow_max_steps or 1,
+        adaptive_scale=cfg.adaptive_scale, shading_scale=cfg.shading_scale)
+
+
+def _step(cfg: RenderConfig, device) -> torch.Tensor:
+    """The march step 1 / sampling_rate (with `max_steps`, both from the
+    config)."""
+    return torch.tensor(1.0 / cfg.sampling_rate, dtype=cfg.dtype,
+                        device=device)
+
+
 def _wants_light_grid(cfg: RenderConfig) -> bool:
     return cfg.shadow_grid and cfg.shading in (ig.SHADING_SHADOW,
                                                ig.SHADING_SSH)
 
 
+def _lattice_res(scene: Scene, cfg: RenderConfig):
+    shape = scene.volume.grid.shape
+    cap = cfg.shadow_grid_res or min(512, max(128, max(shape) // 4))
+    return lightgrid.default_resolution(shape, cap=cap)
+
+
 def build_light_grid(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """Shadow-alpha lattice for `render(..., light_grid=...)`, by the
-    dense light-axis sweep. Rebuild when the volume, TF or light
-    changes."""
+    dense light-axis sweep (as JAX's `build_light_grid` called outside
+    jit). Rebuild when the volume, TF or light changes."""
     vol = scene.volume
-    leaves = (vol.grid, scene.tfn.color, scene.tfn.alpha,
-              scene.tfn.value_range,
-              cfg.base_rate * torch.ones((), dtype=cfg.dtype,
-                                         device=vol.grid.device))
-    shape = vol.grid.shape
-    cap = cfg.shadow_grid_res or min(512, max(128, max(shape) // 4))
-    res = lightgrid.default_resolution(shape, cap=cap)
     direction = safe_normalize(scene.light.direction)
-    return lightgrid.build_light_grid_swept(leaves, direction, vol.world_lo,
-                                            vol.world_hi, res)
+    return lightgrid.build_light_grid_swept(
+        _leaves(scene, cfg), direction, vol.world_lo, vol.world_hi,
+        _lattice_res(scene, cfg))
 
 
-def _unsupported(scene: Scene, cfg: RenderConfig, last_camera):
-    """The first feature outside this slice of the port, or None."""
+def _inline_light_grid(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """The lattice `render` builds when none is given: the shadow march
+    from every texel centre, as JAX's jitted `render` builds it (the
+    light direction is a tracer there, so it cannot pick a sweep
+    axis)."""
+    vol = scene.volume
+    return lightgrid.build_light_grid(
+        _leaves(scene, cfg), safe_normalize(scene.light.direction),
+        vol.world_lo, vol.world_hi, _step(cfg, vol.grid.device),
+        _march_cfg(cfg), _lattice_res(scene, cfg))
+
+
+def _unsupported(scene: Scene, cfg: RenderConfig):
+    """The first feature outside the port so far, or None."""
     if cfg.path_tracing:
-        return f"path tracing arrives with {_LATER} (render/pathtracer.py)"
+        return (f"path tracing arrives with {_LATER.format(6)} "
+                f"(render/pathtracer.py)")
     if not hasattr(scene.volume, "grid"):
-        return f"neural-field volumes arrive with {_LATER} (neural/)"
+        return f"neural-field volumes arrive with {_LATER.format(7)} (neural/)"
     if scene.geometries:
-        return f"geometries arrive with {_LATER} (render/geometry.py)"
+        return (f"geometries arrive with {_LATER.format(4)} "
+                f"(render/geometry.py)")
     if scene.instances:
-        return f"volume instances arrive with {_LATER} (render/multivol.py)"
+        return (f"volume instances arrive with {_LATER.format(4)} "
+                f"(render/multivol.py)")
+    if cfg.sw is None:
+        return None
     if any(lt.kind == "point" for lt in scene.lights):
-        return f"point lights arrive with {_SHADING_EXTRAS}"
+        return f"point lights in shear-warp arrive with {_SW_OPTIONS}"
     n_dir = sum(lt.kind in ("directional", "sunsky") for lt in scene.lights)
     if n_dir > 4 and cfg.shading != ig.SHADING_NONE:
         return (f"{n_dir} extra directional lights: the slice kernel has "
-                f"slots for 4; more arrive with {_SHADING_EXTRAS}")
-    if cfg.jitter_rays:
-        return f"jitter_rays arrives with {_SHADING_EXTRAS}"
-    if last_camera is not None:
-        return f"optical flow (last_camera) arrives with {_SHADING_EXTRAS}"
+                f"slots for 4; more arrive with {_SW_OPTIONS}")
     if cfg.sw_bf16:
-        return f"sw_bf16 arrives with {_SHADING_EXTRAS}"
-    if cfg.sw is None:
-        return (f"method={cfg.method!r} without an eligible shear-warp plan "
-                f"needs {_MARCH}")
+        return f"sw_bf16 arrives with {_SW_OPTIONS}"
     return None
 
 
 def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
+           frame_index: int = 0, generator: Optional[torch.Generator] = None,
            macrocells: Optional[accel.MacrocellGrid] = None,
            last_camera: Optional[Camera] = None,
            light_grid: Optional[torch.Tensor] = None) -> Frame:
-    """Render one frame through the shear-warp fast path.
+    """Render one frame, on the scene's device.
 
-    `cfg` must be resolved (`cfg.resolved(scene)`). `light_grid`: the
-    shadow lattice (`build_light_grid`), built here when shadow shading
-    needs one and none is given, from the scene's own tensors, so that a
-    gradient reaches the volume and the TF through it too; a lattice
-    passed in gets a cotangent of its own.
+    `cfg` must be resolved (`cfg.resolved(scene)`); `cfg.sw` set means
+    shear-warp, None the march. `generator`: the `torch.Generator` of the
+    spp screen jitter and `jitter_rays` (default: one on the scene's
+    device seeded with `frame_index`); a CPU generator for a scene on
+    the card draws on the CPU and copies, so that both devices render
+    the same jitter. `macrocells`: `accel.build_macrocells`
+    of the volume, for shear-warp's plane skipping and, with
+    `cfg.use_macrocells`, the march's empty-space skipping.
+    `last_camera`: fills `Frame.flow`. `light_grid`: the shadow lattice
+    (`build_light_grid`); when shadow shading needs one and none is
+    given, it is built here by the per-point shadow march, from the
+    scene's own tensors, so a gradient reaches the volume and the TF
+    through it too; a lattice passed in gets a cotangent of its own.
 
     Differentiable: `loss.backward()` on the frame's tensors gives the
     gradients of the volume grid (floating point), the TF colour, alpha
-    and value range, the camera, the light and a passed-in lattice. Under
-    grad the slice loop runs without early termination."""
+    and value range, the camera, the lights and a passed-in lattice.
+    Under grad shear-warp's slice loop runs without early termination;
+    the march needs `fast_math=False` (its while loop is forward-only)."""
     if cfg.max_steps is None:
         raise ValueError("call cfg.resolved(scene) first")
     if camera is None:
         camera = scene.camera
-    why = _unsupported(scene, cfg, last_camera)
+    why = _unsupported(scene, cfg)
     if why is not None:
         raise NotImplementedError(why)
-    if light_grid is None and _wants_light_grid(cfg):
-        light_grid = build_light_grid(scene, cfg)
-    return _render_shearwarp_frame(scene, cfg, camera, light_grid,
-                                   macrocells)
+    if generator is None and (cfg.jitter_rays or cfg.spp > 1):
+        generator = torch.Generator(device=scene.device)
+        generator.manual_seed(int(frame_index))
+    if not _wants_light_grid(cfg):
+        light_grid = None
+    elif light_grid is None:
+        light_grid = _inline_light_grid(scene, cfg)
+    if cfg.sw is not None:
+        return _render_shearwarp_frame(scene, cfg, camera, generator,
+                                       last_camera, light_grid, macrocells)
+    return _render_march_frame(scene, cfg, camera, generator, last_camera,
+                               light_grid, macrocells)
+
+
+def _rand(shape, generator, dtype, device) -> torch.Tensor:
+    """Uniform [0, 1) numbers from `generator`, on `device`."""
+    return torch.rand(shape, generator=generator, dtype=dtype,
+                      device=generator.device).to(device)
+
+
+def _frame(cfg: RenderConfig, color, grad, depth, alpha, flow) -> Frame:
+    h, w = cfg.height, cfg.width
+    rgba = torch.cat([color, alpha[..., None]], dim=-1)
+    return Frame(rgba=rgba.reshape(h, w, 4), grad=grad.reshape(h, w, 3),
+                 depth=depth.reshape(h, w),
+                 flow=None if flow is None else flow.reshape(h, w, 2))
+
+
+def _render_march_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
+                        generator, last_camera, light_grid,
+                        macrocells) -> Frame:
+    """The march for every pixel; spp > 1 jitters each sample's screen
+    position, `jitter_rays` its t0, `ray_chunk` marches the rays in
+    chunks (the same result; less memory, and a chunk's while loop stops
+    on its own rays)."""
+    dev = scene.device
+    dt = cfg.dtype
+    screen = pixel_screen_coords(cfg.width, cfg.height, dt, dev)
+    screen = screen.reshape(-1, 2)
+    n = screen.shape[0]
+    mcfg = _march_cfg(cfg)
+    ctx = _shade_ctx(scene, camera, cfg, light_alpha=light_grid)
+    leaves = _leaves(scene, cfg)
+    step = _step(cfg, dev)
+    march_fn = ig.march_while if cfg.fast_math else ig.march
+    occupancy = macrocells if cfg.use_macrocells else None
+
+    def ray_batch(sc, tj):
+        org, direction = generate_rays(camera, sc, cfg.width, cfg.height)
+        color, grad, depth, alpha = march_fn(
+            org, direction, leaves, ctx, mcfg, step, occupancy=occupancy,
+            jitter=tj)
+        flow = (None if last_camera is None else blended_flow(
+            camera, last_camera, cfg.width, cfg.height, org, direction,
+            depth, alpha))
+        return (*ig.finalize(color, grad, depth, alpha), flow)
+
+    acc = None
+    for _ in range(cfg.spp):
+        sc = screen
+        if cfg.spp > 1:
+            jit2 = _rand((n, 2), generator, dt, dev) - 0.5
+            sc = screen + jit2 / torch.tensor([cfg.width, cfg.height],
+                                              dtype=dt, device=dev)
+        tj = _rand((n,), generator, dt, dev) if cfg.jitter_rays else None
+        c = cfg.ray_chunk
+        if c and n > c:
+            parts = [ray_batch(sc[i:i + c], None if tj is None
+                               else tj[i:i + c]) for i in range(0, n, c)]
+            out = [None if p[0] is None else torch.cat(p)
+                   for p in zip(*parts)]
+        else:
+            out = ray_batch(sc, tj)
+        acc = out if acc is None else [
+            None if a is None else a + o for a, o in zip(acc, out)]
+    if cfg.spp > 1:
+        acc = [None if a is None else a * (1.0 / cfg.spp) for a in acc]
+    return _frame(cfg, *acc)
 
 
 def _render_shearwarp_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
-                            light_grid=None, macrocells=None) -> Frame:
-    """Shear-warp frame; spp > 1 stratifies the sample-plane offset."""
+                            generator, last_camera, light_grid=None,
+                            macrocells=None) -> Frame:
+    """Shear-warp frame; spp > 1 stratifies the sample-plane offset,
+    `jitter_rays` draws it at random."""
+    dev = scene.device
     acc = None
     for s in range(cfg.spp):
-        off = ((torch.tensor(float(s), dtype=cfg.dtype) + 0.5) / cfg.spp
-               if cfg.spp > 1 else None)
+        if cfg.jitter_rays:
+            off = _rand((), generator, cfg.dtype, dev)
+        elif cfg.spp > 1:
+            off = (torch.tensor(float(s), dtype=cfg.dtype) + 0.5) / cfg.spp
+        else:
+            off = None
         out = shearwarp.render_shearwarp(scene, cfg, camera, jitter=off,
                                          light_grid=light_grid,
                                          macrocells=macrocells)
         acc = out if acc is None else tuple(a + o for a, o in zip(acc, out))
     if cfg.spp > 1:
         acc = tuple(a * (1.0 / cfg.spp) for a in acc)
-    color, grad, depth, alpha = ig.finalize(*acc)
-    rgba = torch.cat([color, alpha[..., None]], dim=-1)
-    return Frame(rgba=rgba.reshape(cfg.height, cfg.width, 4),
-                 grad=grad.reshape(cfg.height, cfg.width, 3),
-                 depth=depth.reshape(cfg.height, cfg.width))
+    color, grad, depth, alpha = acc
+    flow = None
+    if last_camera is not None:
+        screen = pixel_screen_coords(cfg.width, cfg.height, cfg.dtype,
+                                     dev).reshape(-1, 2)
+        org, direction = generate_rays(camera, screen, cfg.width, cfg.height)
+        flow = blended_flow(camera, last_camera, cfg.width, cfg.height, org,
+                            direction, depth, alpha)
+    return _frame(cfg, *ig.finalize(color, grad, depth, alpha), flow)
+
+
+@dataclasses.dataclass(frozen=True)
+class AccumState:
+    """Running sums of every Frame channel, and of the squared rgba for
+    the variance."""
+
+    rgba: torch.Tensor
+    rgba_sq: torch.Tensor
+    grad: torch.Tensor
+    depth: Any = None
+    flow: Any = None
+
+
+def accumulate(frame: Frame, accum: Optional[AccumState], frame_index
+               ) -> tuple[Frame, AccumState]:
+    """Progressive accumulation over every frame channel. `frame_index`
+    is 1-based; returns (the running mean to display, the new sums)."""
+    if accum is None or frame_index <= 1:
+        acc = AccumState(rgba=frame.rgba, rgba_sq=frame.rgba ** 2,
+                         grad=frame.grad, depth=frame.depth, flow=frame.flow)
+        return frame, acc
+
+    def _add(a, b):
+        return None if (a is None or b is None) else a + b
+
+    new = AccumState(
+        rgba=accum.rgba + frame.rgba, rgba_sq=accum.rgba_sq + frame.rgba ** 2,
+        grad=accum.grad + frame.grad, depth=_add(accum.depth, frame.depth),
+        flow=_add(accum.flow, frame.flow))
+    k = frame_index
+
+    def _avg(a):
+        return None if a is None else a / k
+
+    disp = Frame(rgba=new.rgba / k, grad=new.grad / k, depth=_avg(new.depth),
+                 flow=_avg(new.flow))
+    return disp, new
+
+
+def variance_of(accum: Optional[AccumState], frame_index) -> float:
+    """Mean per-pixel unbiased sample variance of the accumulated rgba;
+    inf until two frames are in."""
+    k = int(frame_index)
+    if accum is None or k < 2:
+        return float("inf")
+    mean = accum.rgba / k
+    var = torch.clamp(accum.rgba_sq / k - mean ** 2, min=0.0) * (k / (k - 1))
+    return float(torch.mean(var))
+
+
+_SPARSE = ("sparse sampling arrives with a later slice of the port "
+           "(ROADMAP Queue next item 4, render/sparse.py)")
+
+
+class Renderer:
+    """Stateful facade: setters queue parameter changes, `commit()`
+    resolves the config and builds the macrocells and the shadow lattice
+    it needs (cached until the volume, TF or light changes), `render()`
+    draws a frame (and accumulates, if enabled), `mapframe()` returns
+    numpy arrays. Path tracing and neural volumes raise at `render()`,
+    sparse sampling at its setters."""
+
+    def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig()):
+        self.scene = scene
+        self._cfg = cfg
+        self._camera = scene.camera
+        self._frame_index = 0
+        self._accum: Optional[AccumState] = None
+        self._frame: Optional[Frame] = None
+        self._macrocells: Optional[accel.MacrocellGrid] = None
+        self._light_grid: Optional[torch.Tensor] = None
+        self._accumulating = False
+        self._dirty = True
+        self.render_time = 0.0
+        self.variance = float("inf")
+
+    @property
+    def _device(self):
+        return self.scene.device
+
+    # -- setters --
+    def set_fbsize(self, size) -> None:
+        w, h = int(size[0]), int(size[1])
+        self._cfg = dataclasses.replace(self._cfg, width=w, height=h)
+        self._reset()
+
+    def set_camera(self, from_=None, at=None, up=None,
+                   camera: Camera = None) -> None:
+        if camera is None:
+            c = self._camera
+            camera = Camera.create(
+                from_ if from_ is not None else c.from_,
+                at if at is not None else c.at,
+                up if up is not None else c.up,
+                fovy=c.fovy, height=c.height, kind=c.kind,
+                device=self._device)
+        self._camera = camera
+        # shear-warp plans depend on the camera
+        self._reset(rejit=self._cfg.method != "march")
+
+    def set_transfer_function(self, color, alpha, value_range) -> None:
+        color = np.asarray(color, np.float32)
+        if color.ndim == 1:
+            color = color.reshape(-1, 3)
+        alpha = np.asarray(alpha, np.float32)
+        if alpha.ndim == 2:  # (N, 2) position/value pairs: take values
+            alpha = alpha[:, 1]
+        tfn = TransferFunction.create(color, alpha, value_range,
+                                      device=self._device)
+        self.scene = dataclasses.replace(self.scene, tfn=tfn)
+        self._macrocells = None
+        self._light_grid = None
+        self._reset(rejit=False)
+
+    def set_sample_per_pixel(self, spp: int) -> None:
+        self._cfg = dataclasses.replace(self._cfg, spp=int(spp))
+        self._reset()
+
+    def set_volume_sampling_rate(self, rate: float) -> None:
+        self.scene = dataclasses.replace(
+            self.scene, volume_sampling_rate=torch.tensor(
+                float(rate), device=self._device))
+        self._cfg = dataclasses.replace(
+            self._cfg, sampling_rate=float(rate), max_steps=None,
+            shadow_max_steps=None)
+        self._light_grid = None
+        self._reset()
+
+    def set_volume_data(self, grid) -> None:
+        """Swap the volume's voxels (as float32); the macrocells and the
+        shadow lattice rebuild at the next commit."""
+        grid = torch.as_tensor(np.asarray(grid) if not isinstance(
+            grid, torch.Tensor) else grid)
+        vol = dataclasses.replace(self.scene.volume, grid=grid.to(
+            device=self._device, dtype=torch.float32))
+        self.scene = dataclasses.replace(self.scene, volume=vol)
+        self._macrocells = None
+        self._light_grid = None
+        self._reset(rejit=False)
+
+    def set_volume_density_scale(self, s: float) -> None:
+        self.scene = dataclasses.replace(
+            self.scene, density_scale=torch.tensor(float(s),
+                                                   device=self._device))
+        self._reset(rejit=False)
+
+    def set_path_tracing(self, enabled: bool) -> None:
+        self._cfg = dataclasses.replace(self._cfg, path_tracing=bool(enabled))
+        self._reset()
+
+    def set_frame_accumulation(self, enabled: bool) -> None:
+        self._accumulating = bool(enabled)
+        self._reset(rejit=False)
+
+    def set_shading(self, mode: str) -> None:
+        self._cfg = dataclasses.replace(self._cfg, shading=mode)
+        self._reset()
+
+    def set_sparse_sampling(self, enabled: bool) -> None:
+        if enabled:
+            raise NotImplementedError(_SPARSE)
+
+    def set_focus(self, center, scale, base_noise) -> None:
+        raise NotImplementedError(_SPARSE)
+
+    # -- lifecycle --
+    def _reset(self, rejit: bool = True) -> None:
+        self._frame_index = 0
+        self._accum = None
+        if rejit:
+            self._dirty = True
+
+    def commit(self) -> None:
+        if self._dirty:
+            self._cfg = dataclasses.replace(
+                self._cfg, max_steps=None, shadow_max_steps=None
+            ).resolved(self.scene, self._camera)
+            self._dirty = False
+        if not hasattr(self.scene.volume, "grid"):
+            raise NotImplementedError(_unsupported(self.scene, self._cfg))
+        if ((self._cfg.use_macrocells or self._cfg.path_tracing)
+                and self._macrocells is None):
+            self._macrocells = accel.build_macrocells(
+                self.scene.volume.grid, self.scene.tfn.alpha,
+                self.scene.tfn.value_range)
+        if _wants_light_grid(self._cfg) and self._light_grid is None:
+            self._light_grid = build_light_grid(self.scene, self._cfg)
+
+    def render(self) -> None:
+        self.commit()
+        self._frame_index += 1
+        t0 = time.perf_counter()
+        frame = render(self.scene, self._cfg, camera=self._camera,
+                       frame_index=self._frame_index,
+                       macrocells=self._macrocells,
+                       light_grid=self._light_grid)
+        if self._accumulating:
+            frame, self._accum = accumulate(frame, self._accum,
+                                            self._frame_index)
+            self.variance = variance_of(self._accum, self._frame_index)
+        if frame.rgba.is_cuda:
+            torch.cuda.synchronize(frame.rgba.device)
+        self.render_time += time.perf_counter() - t0
+        self._frame = frame
+
+    def swap(self) -> None:
+        """Double buffering is a no-op in a functional renderer."""
+
+    def mapframe(self) -> dict[str, np.ndarray]:
+        if self._frame is None:
+            raise RuntimeError("render() first")
+        out = {"rgba": self._frame.rgba.detach().cpu().numpy(),
+               "grad": self._frame.grad.detach().cpu().numpy()}
+        if self._frame.depth is not None:
+            out["depth"] = self._frame.depth.detach().cpu().numpy()
+        if self._frame.flow is not None:
+            out["flow"] = self._frame.flow.detach().cpu().numpy()
+        return out

@@ -31,14 +31,9 @@ from typing import Callable, Optional
 
 import torch
 
+from ovr_tpu_torch.core.sampling import clip
+
 A_MAX = 1.0 - 1e-6  # keep 1 - a invertible in fp32
-
-
-def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """min(max(x, lo), hi), which halves the cotangent where x equals a
-    bound, as `jnp.clip` does (`torch.clamp` passes it whole)."""
-    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
-                         x.new_full((), hi))
 
 
 def over_scan(f: Callable, n_steps: int, params: dict):

@@ -36,8 +36,8 @@ from typing import Optional
 
 import torch
 
-from ovr_tpu_torch.core.sampling import storage_scale
-from ovr_tpu_torch.ops.adjoint import adjoint_sweep, clip, over_scan
+from ovr_tpu_torch.core.sampling import clip, storage_scale
+from ovr_tpu_torch.ops.adjoint import adjoint_sweep, over_scan
 
 LAUNCHES = 0  # kernel launches through `slice_composite`
 

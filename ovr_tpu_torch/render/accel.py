@@ -5,8 +5,11 @@ Port of `ovr_tpu.render.accel`'s builder: per 16-voxel macrocell, the
 halo on each side, so every trilinear fetch inside the cell is covered)
 and the majorant, the max TF opacity over the cell's widened node-index
 range. The fused slice kernel skips planes whose covering majorants are
-all <= 1.19e-7. JAX's `reduce_window` becomes a -inf pad plus
-`max_pool3d` (min = -max of the negation).
+all <= 1.19e-7; the march asks the grid for the majorant at a point and
+for the distance to the exit of the cell around it (`majorant_at`,
+`cell_exit_t`: the lockstep form of a per-ray DDA). JAX's
+`reduce_window` becomes a -inf pad plus `max_pool3d` (min = -max of the
+negation).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ovr_tpu_torch.core.sampling import storage_scale
+from ovr_tpu_torch.core.sampling import axis_constants, storage_scale
 
 MACROCELL_SIZE = 16
 
@@ -39,6 +42,47 @@ class MacrocellGrid:
         """(MX, MY, MZ)."""
         mz, my, mx = self.value_lo.shape
         return (mx, my, mz)
+
+    # ---- the march's queries (object space p in [0,1]^3) ----
+
+    def cell_index(self, p_obj: torch.Tensor) -> torch.Tensor:
+        """Macrocell (x, y, z) containing object-space points (..., 3)."""
+        xd, yd, zd = self.vol_dims
+        dims = axis_constants(xd, yd, zd, p_obj.dtype, p_obj.device)[0]
+        mx, my, mz = self.mc_dims
+        top = axis_constants(mx, my, mz, p_obj.dtype, p_obj.device)[1]
+        cell = torch.floor(p_obj * dims / MACROCELL_SIZE).long()
+        return torch.minimum(torch.clamp(cell, min=0), top)
+
+    def majorant_at(self, p_obj: torch.Tensor) -> torch.Tensor:
+        c = self.cell_index(p_obj)
+        mx = self.mc_dims[0]
+        idx = (c[..., 2] * self.majorant.shape[1] + c[..., 1]) * mx \
+            + c[..., 0]
+        return self.majorant.reshape(-1)[idx]
+
+    def is_empty(self, p_obj: torch.Tensor, eps: float = 1.19e-7
+                 ) -> torch.Tensor:
+        return self.majorant_at(p_obj) <= eps
+
+    def cell_exit_t(self, org, direction, t, world_lo, world_hi,
+                    eps: float = 1e-5):
+        """World-space t at which each ray leaves the macrocell that
+        contains org + t*dir, nudged `eps` past the boundary."""
+        extent = world_hi - world_lo
+        pos = org + t[..., None] * direction
+        p_obj = (pos - world_lo) / extent
+        c = self.cell_index(p_obj).to(org.dtype)
+        xd, yd, zd = self.vol_dims
+        dims = axis_constants(xd, yd, zd, org.dtype, org.device)[0]
+        cell_w = MACROCELL_SIZE / dims  # object units per cell
+        blo = world_lo + c * cell_w * extent
+        bhi = world_lo + (c + 1.0) * cell_w * extent
+        small = torch.abs(direction) < 1e-12
+        rcp = 1.0 / torch.where(small, 1.0, direction)
+        t_far = torch.maximum((blo - org) * rcp, (bhi - org) * rcp)
+        t_far = torch.where(small, 3.4e38, t_far)
+        return t_far.amin(dim=-1) + eps
 
 
 def compute_value_ranges(grid: torch.Tensor):

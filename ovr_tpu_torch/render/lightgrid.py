@@ -1,6 +1,10 @@
-"""Shadow-alpha lattice by a dense light-axis sweep.
+"""Shadow-alpha lattices: the per-point shadow march and the dense
+light-axis sweep.
 
-Port of `ovr_tpu.render.lightgrid.build_light_grid_swept`: the lattice's
+Port of `ovr_tpu.render.lightgrid`. `build_light_grid` runs the march's
+shadow march (`integrator._shadow_alpha`) from every texel centre; it is
+what JAX's jitted `render` builds inline, where the light direction is a
+tracer. `build_light_grid_swept` is what JAX builds eagerly: the lattice's
 transmittance obeys a plane-to-plane recurrence along the light's
 dominant axis, T(plane k) = shift(T(plane k-1)) * (1 - a(midpoint
 sample)), where the shift is the constant lateral drift of the light
@@ -15,6 +19,33 @@ import torch
 
 from ovr_tpu_torch.core.sampling import (classify, opacity_correction,
                                          storage_scale)
+from ovr_tpu_torch.render import integrator as ig
+
+
+def build_light_grid(scene_leaves, light_dir, world_lo, world_hi, step,
+                     cfg: ig.MarchConfig, res: tuple[int, int, int]
+                     ) -> torch.Tensor:
+    """Shadow-alpha lattice (res_z, res_y, res_x) over object space: at
+    each texel centre (half-texel convention, so a trilinear fetch
+    reconstructs the centres exactly) the alpha accumulated marching
+    toward `light_dir` at `cfg.shadow_scale * step` for
+    `cfg.shadow_max_steps` steps. `scene_leaves` = (grid, color_table,
+    alpha_table, value_range, base). Differentiable."""
+    rz, ry, rx = res
+    dt, dev = world_lo.dtype, world_lo.device
+
+    def centers(n):
+        return (torch.arange(n, dtype=dt, device=dev) + 0.5) / n
+
+    pz, py, px = torch.meshgrid(centers(rz), centers(ry), centers(rx),
+                                indexing="ij")
+    p_obj = torch.stack([px, py, pz], dim=-1).reshape(-1, 3)
+    pos = world_lo + p_obj * (world_hi - world_lo)
+    grid, color_table, alpha_table, value_range, base = scene_leaves
+    alpha = ig._shadow_alpha(grid, color_table, alpha_table, value_range,
+                             base, pos, light_dir, world_lo, world_hi, step,
+                             cfg)
+    return alpha.reshape(rz, ry, rx)
 
 
 def _hat(pos: torch.Tensor, n: int) -> torch.Tensor:

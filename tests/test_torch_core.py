@@ -4,7 +4,7 @@ Sampling math, camera basis, finalize, macrocells, the swept shadow
 lattice, the shear-warp plan and scene conversion are fed the same numpy
 inputs in both packages. Also the port's own contract: it never imports
 JAX or `ovr_tpu`, its entry points default to the card, and features
-outside its first slice raise NotImplementedError.
+not yet ported raise NotImplementedError.
 """
 
 import dataclasses
@@ -307,17 +307,24 @@ def _tiny_scene(**kw):
     return dataclasses.replace(scene, **kw)
 
 
-@pytest.mark.parametrize("what", ["march", "path_tracing", "point_light",
-                                  "five_lights", "jitter_rays",
-                                  "last_camera", "sw_bf16", "geometry",
-                                  "neural"])
+@pytest.mark.parametrize("what", ["instances", "path_tracing",
+                                  "point_light", "five_lights",
+                                  "sparse_sampling", "focus", "sw_bf16",
+                                  "geometry", "neural"])
 def test_unsupported_features_raise(what):
     scene = _tiny_scene()
     kw = dict(width=16, height=16, sampling_rate=8.0, shading="none",
               method="auto")
-    render_kw = {}
-    if what == "march":
-        kw["method"] = "march"
+    if what in ("sparse_sampling", "focus"):
+        r = api.Renderer(scene, api.RenderConfig(**kw))
+        with pytest.raises(NotImplementedError, match="slice"):
+            if what == "focus":
+                r.set_focus((0.5, 0.5), 0.2, 0.1)
+            else:
+                r.set_sparse_sampling(True)
+        return
+    if what == "instances":
+        scene = _tiny_scene(instances=(object(),))
     elif what == "path_tracing":
         kw["path_tracing"] = True
     elif what == "point_light":
@@ -329,10 +336,6 @@ def test_unsupported_features_raise(what):
         scene = _tiny_scene(lights=tuple(
             Light.create(direction=(0.1 * i, 0.3, -1.0), device="cpu")
             for i in range(5)))
-    elif what == "jitter_rays":
-        kw["jitter_rays"] = True
-    elif what == "last_camera":
-        render_kw["last_camera"] = scene.camera
     elif what == "sw_bf16":
         kw["sw_bf16"] = True
     elif what == "geometry":
@@ -345,7 +348,7 @@ def test_unsupported_features_raise(what):
         return
     cfg = api.RenderConfig(**kw).resolved(scene)
     with pytest.raises(NotImplementedError, match="slice"):
-        api.render(scene, cfg, **render_kw)
+        api.render(scene, cfg)
 
 
 def test_cpu_render_never_launches():

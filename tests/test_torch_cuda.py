@@ -1,4 +1,5 @@
-"""The port's CUDA slice kernel against its plain PyTorch version, on a card.
+"""The port's CUDA slice kernel against its plain PyTorch version, and
+the march on the card against the march on the CPU, on a card.
 
 Marked `cuda`: each test decides inside itself whether a CUDA device
 exists and skips without one. The module imports neither JAX nor
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PlainCalls
+from chip_smoke import MARCH_CASES, PlainCalls, field, march_scene
 from ovr_tpu_torch import api
 from ovr_tpu_torch.core.scene import Camera, Light, simple_scene
 from ovr_tpu_torch.ops import swslice
@@ -280,3 +281,57 @@ def test_five_extra_lights_raise_on_card():
     with pytest.raises(NotImplementedError, match="slice"):
         api.render(scene, cfg)
     assert swslice.LAUNCHES == before
+
+
+def _march_frame(kind, cam, shading, lattice, device, **kw):
+    grid = field(48, kind, torch.device("cuda")).to(device)
+    scene = march_scene(grid, kind, cam)
+    cfg = api.RenderConfig(
+        width=64, height=48, sampling_rate=48.0, shading=shading,
+        method="auto" if cam == "wide" else "march", shadow_grid=lattice,
+        use_macrocells=True, adaptive_scale=4.0, jitter_rays=True,
+        **kw).resolved(scene)
+    assert cfg.sw is None
+    mc = accel.build_macrocells(grid, scene.tfn.alpha, scene.tfn.value_range)
+    last = dataclasses.replace(scene.camera,
+                               from_=scene.camera.from_ + 0.02)
+    return api.render(scene, cfg, macrocells=mc, last_camera=last,
+                      generator=torch.Generator().manual_seed(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cam,shading,lattice",
+                         [MARCH_CASES[i] for i in (1, 3, 5, 6)])
+def test_march_on_card_matches_cpu(kind, cam, shading, lattice):
+    """The march on the card against the CPU (chip_smoke.py's phase (a)
+    cases at 48^3); the frame stays on the card; chunked rays give the
+    whole frame's bits there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    card = _march_frame(kind, cam, shading, lattice, "cuda")
+    cpu = _march_frame(kind, cam, shading, lattice, "cpu")
+    for name, tol in (("rgba", 1e-4), ("grad", 1e-4), ("depth", 5e-4),
+                      ("flow", 5e-4)):
+        assert getattr(card, name).is_cuda
+        np.testing.assert_allclose(getattr(card, name).cpu().numpy(),
+                                   getattr(cpu, name).numpy(), atol=tol)
+    chunked = _march_frame(kind, cam, shading, lattice, "cuda",
+                           ray_chunk=1000)
+    for name in ("rgba", "grad", "depth", "flow"):
+        assert torch.equal(getattr(chunked, name), getattr(card, name))
+
+
+@pytest.mark.cuda
+def test_march_while_raises_under_grad_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _scene("smooth", "f32", "persp", n=16, device="cuda")
+    grid = scene.volume.grid.clone().requires_grad_(True)
+    scene = dataclasses.replace(scene, volume=dataclasses.replace(
+        scene.volume, grid=grid))
+    cfg = api.RenderConfig(width=16, height=12, sampling_rate=16.0,
+                           shading="diffuse", fast_math=True).resolved(scene)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        api.render(scene, cfg)
+    with torch.no_grad():
+        assert api.render(scene, cfg).rgba.is_cuda
