@@ -30,9 +30,6 @@ from ovr_tpu_torch.render import lightgrid, shearwarp
 from ovr_tpu_torch.render.camera import (blended_flow, camera_basis,
                                          generate_rays, pixel_screen_coords)
 
-_SW_OPTIONS = ("a later slice of the port (ROADMAP Queue next item 2: "
-               "sw_bf16, point lights and more than 4 extra lights in "
-               "shear-warp)")
 _LATER = "a later slice of the port (ROADMAP Queue next item {})"
 
 
@@ -44,7 +41,19 @@ class RenderConfig:
     `ovr_tpu`'s `sw_pallas` (the Pallas kernel or the XLA slice loop) has
     no counterpart: the slice loop is the kernel on the card and its plain
     version on the CPU. `ray_chunk` stays None unless set (the JAX
-    package sets one only on a TPU)."""
+    package sets one only on a TPU).
+
+    `sw_bf16` rounds shear-warp's resampling operands to bfloat16 (to
+    nearest even) and sums their products in f32, as the JAX kernel's
+    bf16 variant does: in the slice loop the z-lerped plane, the row and
+    column weights (the storage scale folded into the row weights), the
+    row-resampled values, the analytic gradient's derivative weights and
+    the shadow lattice's plane, weights and row results, with an f32
+    grid of a multiple of 16 rows (along the view's rows) read as bf16;
+    in the final warp the image, the tap weights and the separable
+    warp's row result. The TF lookup, the FD gradient, shading and
+    compositing stay f32. Under grad the backward recomputes the planes
+    as the JAX package's does (`swslice._adjoint`)."""
 
     width: int = 512
     height: int = 512
@@ -235,16 +244,6 @@ def _unsupported(scene: Scene, cfg: RenderConfig):
     if scene.instances:
         return (f"volume instances arrive with {_LATER.format(4)} "
                 f"(render/multivol.py)")
-    if cfg.sw is None:
-        return None
-    if any(lt.kind == "point" for lt in scene.lights):
-        return f"point lights in shear-warp arrive with {_SW_OPTIONS}"
-    n_dir = sum(lt.kind in ("directional", "sunsky") for lt in scene.lights)
-    if n_dir > 4 and cfg.shading != ig.SHADING_NONE:
-        return (f"{n_dir} extra directional lights: the slice kernel has "
-                f"slots for 4; more arrive with {_SW_OPTIONS}")
-    if cfg.sw_bf16:
-        return f"sw_bf16 arrives with {_SW_OPTIONS}"
     return None
 
 

@@ -2,7 +2,8 @@
 //
 // Replaces ovr_tpu/ops/swslice.py:_kernel_persist (the TPU kernel behind
 // slice_composite_pallas) and _kernel (its BlockSpec variant, which
-// computes the same function through the same _slice_body). The plain
+// computes the same function through the same _slice_body), each in its
+// f32 form and in its bf16=True form (template flag BF16). The plain
 // PyTorch version is ovr_tpu_torch/ops/swslice.py:slice_composite_plain.
 //
 // What it computes, for every fan pixel, front to back over the planes:
@@ -12,7 +13,22 @@
 // fan-space gradient (finite differences or the analytic bilinear
 // derivative; the axial term from the previous computed plane) and in
 // mode 2 a shadow read from the light lattice, then over-composite into
-// 8 channels [r, g, b, nx, ny, nz, depth, alpha].
+// 8 channels [r, g, b, nx, ny, nz, depth, alpha]. The shading adds a
+// table of extra lights (template flag LIGHTS: directional ones, then
+// point lights with inverse-square falloff, any number, staged in shared
+// memory beside the RGBA table); without it the variants keep the
+// registers of the primary light alone.
+//
+// The BF16 variant rounds to bf16 (to nearest even) every operand that
+// the TPU kernel's bf16 matmuls take, and sums their products in f32:
+// the z-lerped plane (formed as one fma, as the JAX kernel forms it on
+// the CPU), the row weights with the storage scale folded in, the row
+// results, the column weights, the analytic gradient's derivative
+// weights, and mode 2's lattice plane, weights and row results. A product
+// of two bf16 values is exact in f32, so each two-tap sum rounds once,
+// as the matmul's f32 accumulation does. The TF lookup, the FD
+// differences, shading and compositing stay f32. The caller casts an f32
+// grid to bf16 where the TPU kernel streams it as bf16.
 //
 // What bounds it. At the headline frame (1024^3 bf16 volume, 1024
 // planes, 1352 x 2048 fan) the function must read the 2.15 GB grid once
@@ -72,6 +88,7 @@
 // samples feed the axial difference). The block stops when no ray in it
 // has T > 1e-4 with its box exit still ahead.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,7 +112,7 @@ enum : int {
   S_W00, S_W01, S_W02, S_W10, S_W11, S_W12, S_W20, S_W21, S_W22,
   S_CLO1, S_CEX1, S_CLO2, S_CEX2, S_CLA, S_CHA, S_SMP0, S_SMPSC,
   S_GLO1, S_GEX1, S_GLO2, S_GEX2,
-  S_EL0 = 48, S_GS = 64, S_DP = 65, S_DQ = 66, S_QLO = 67
+  S_ZA0 = 48, S_ZSG = 49, S_GS = 64, S_DP = 65, S_DQ = 66, S_QLO = 67
 };
 
 struct Params {
@@ -114,10 +131,11 @@ struct Params {
   const float* lgrid;  // (la, lr, lc), mode 2
   const int* k0l;
   int la, lr, lc;
+  const float* lights;  // (n_lights, 4): n_dir directional, then points
+  int n_lights, n_dir;
   const float* maj;  // (ma, mr, mc) or null
   int ma, mr, mc;
   int flip;  // maj and grid are storage-ordered; traversal runs backward
-  int n_extra;
   int term;
   float* out;  // (8, hi, wi)
   int* block_planes;  // per-block count of composited planes, or null
@@ -165,6 +183,18 @@ __device__ __forceinline__ float load_voxel<bf16_t>(const bf16_t* p) {
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+// x rounded to bf16 (to nearest, ties to even), as an f32.
+__device__ __forceinline__ float rb(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a * (1 - f) + b * f with g = 1 - f: one fma in the BF16 variant (the
+// JAX kernel's form on the CPU), two products and a sum otherwise.
+template <bool FMA>
+__device__ __forceinline__ float zlerp(float a, float b, float g, float f) {
+  return FMA ? __fmaf_rn(a, g, b * f) : a * g + b * f;
 }
 
 __device__ __forceinline__ void cp_async(unsigned dst, const void* src,
@@ -226,10 +256,11 @@ struct DirectTaps {
   const T* s0;
   const T* s1;
   long long sr, sc;
+  template <bool FMA>
   __device__ __forceinline__ float v(float gz, float fz, int ir, int ic)
       const {
     const long long o = ir * sr + ic * sc;
-    return load_voxel(s0 + o) * gz + load_voxel(s1 + o) * fz;
+    return zlerp<FMA>(load_voxel(s0 + o), load_voxel(s1 + o), gz, fz);
   }
 };
 
@@ -239,17 +270,20 @@ struct StagedTaps {
   const T* w0;  // window of slab k0, first voxel at (r0, c0)
   const T* w1;  // window of slab k0 + 1, first voxel at (r1, c1)
   int r0, c0, r1, c1;
+  template <bool FMA>
   __device__ __forceinline__ float v(float gz, float fz, int ir, int ic)
       const {
-    return to_float<T>(w0[(ir - r0) * CC + (ic - c0)]) * gz
-           + to_float<T>(w1[(ir - r1) * CC + (ic - c1)]) * fz;
+    return zlerp<FMA>(to_float<T>(w0[(ir - r0) * CC + (ic - c0)]),
+                     to_float<T>(w1[(ir - r1) * CC + (ic - c1)]), gz, fz);
   }
 };
 
 // Bilinear sample of the z-lerped plane at (vr, vc), storage scale gs
 // folded into the row weights. GRAD also returns the analytic
-// derivatives along columns (g1) and rows (g2), zero on a node.
-template <bool GRAD, typename Taps>
+// derivatives along columns (g1) and rows (g2), zero on a node. BF16
+// rounds the operands as the TPU kernel's bf16 matmuls take them (the
+// head note); its derivative weights are -/+ rb(gs) on the two taps.
+template <bool GRAD, bool BF16, typename Taps>
 __device__ __forceinline__ float sample(const Taps& tp, int nr, int nc,
                                         float fz, float vr, float vc,
                                         float gs, float* g1, float* g2) {
@@ -259,10 +293,25 @@ __device__ __forceinline__ float sample(const Taps& tp, int nr, int nc,
   const float fc = vc - (float)ic0;
   const int ir1 = min(ir0 + 1, nr - 1), ic1 = min(ic0 + 1, nc - 1);
   const float gz = 1.0f - fz;
-  const float v00 = tp.v(gz, fz, ir0, ic0);
-  const float v01 = tp.v(gz, fz, ir0, ic1);
-  const float v10 = tp.v(gz, fz, ir1, ic0);
-  const float v11 = tp.v(gz, fz, ir1, ic1);
+  const float v00 = tp.template v<BF16>(gz, fz, ir0, ic0);
+  const float v01 = tp.template v<BF16>(gz, fz, ir0, ic1);
+  const float v10 = tp.template v<BF16>(gz, fz, ir1, ic0);
+  const float v11 = tp.template v<BF16>(gz, fz, ir1, ic1);
+  if (BF16) {
+    const float b00 = rb(v00), b01 = rb(v01), b10 = rb(v10), b11 = rb(v11);
+    const float wr0 = rb((1.0f - fr) * gs), wr1 = rb(fr * gs);
+    const float wc0 = rb(1.0f - fc), wc1 = rb(fc);
+    const float t0 = rb(b00 * wr0 + b10 * wr1);
+    const float t1 = rb(b01 * wr0 + b11 * wr1);
+    if (GRAD) {
+      *g1 = fc > 0.0f ? t1 - t0 : 0.0f;
+      const float gsb = rb(gs);
+      const float d0 = rb(b10 * gsb - b00 * gsb);
+      const float d1 = rb(b11 * gsb - b01 * gsb);
+      *g2 = fr > 0.0f ? d0 * wc0 + d1 * wc1 : 0.0f;
+    }
+    return t0 * wc0 + t1 * wc1;
+  }
   const float wr0 = (1.0f - fr) * gs;
   const float wr1 = fr * gs;
   const float t0 = v00 * wr0 + v10 * wr1;
@@ -307,15 +356,17 @@ constexpr int min_blocks(int mode, bool fd) {
   return mode == 1 && fd ? 4 : 5;
 }
 
-template <typename T, int MODE, bool FD, bool COUNT>
+template <typename T, int MODE, bool FD, bool COUNT, bool BF16, bool LIGHTS>
 __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
     swslice_kernel(Params P) {
   constexpr int BUF = CR * CC;  // voxels per slab buffer
   extern __shared__ __align__(16) unsigned char dyn[];
   float4* tab = reinterpret_cast<float4*>(dyn);  // (n_tab,) rgba
+  float4* lts = tab + P.n_tab;  // (n_lights,) the light table
   // per plane: macrocell bits, whether its window covers the next plane
   // too, and the window (rows, aligned columns; x < 0: taps from the grid)
-  unsigned* raw = reinterpret_cast<unsigned*>(dyn + 16 * P.n_tab);
+  unsigned* raw =
+      reinterpret_cast<unsigned*>(dyn + 16 * (P.n_tab + P.n_lights));
   unsigned* cov = raw + P.n_words;
   short4* wins = reinterpret_cast<short4*>(dyn + P.fp_off);
   int* k0s = reinterpret_cast<int*>(wins + P.n_slices);  // the schedule
@@ -335,6 +386,10 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
   for (int i = tid; i < P.n_tab; i += NT)
     tab[i] = make_float4(P.tab[4 * i], P.tab[4 * i + 1], P.tab[4 * i + 2],
                          P.tab[4 * i + 3]);
+  if (LIGHTS)
+    for (int i = tid; i < P.n_lights; i += NT)
+      lts[i] = make_float4(P.lights[4 * i], P.lights[4 * i + 1],
+                           P.lights[4 * i + 2], P.lights[4 * i + 3]);
   if (FD)
     for (int i = tid; i < 2 * (BR + 2) * (BC + 2); i += NT)
       (&tile[0][0][0])[i] = 0.0f;
@@ -569,10 +624,10 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
       const float vr = vr_of(sc, sc[S_QLO] + (float)hr * sc[S_DQ], lam,
                              P.nr, ortho);
       const float vc = vc_of(sc, pc, lam, P.nc, ortho);
-      return direct ? sample<false>(dt, P.nr, P.nc, fz, vr, vc, gs, nullptr,
-                                    nullptr)
-                    : sample<false>(st, P.nr, P.nc, fz, vr, vc, gs, nullptr,
-                                    nullptr);
+      return direct ? sample<false, BF16>(dt, P.nr, P.nc, fz, vr, vc, gs,
+                                          nullptr, nullptr)
+                    : sample<false, BF16>(st, P.nr, P.nc, fz, vr, vc, gs,
+                                          nullptr, nullptr);
     };
     if (FD) {
       float* tl = &tile[ss][0][0];
@@ -609,10 +664,10 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
         const float vr = vr_of(sc, q[u], lam, P.nr, ortho);
         const float vc = vc_of(sc, p, lam, P.nc, ortho);
         constexpr bool G = MODE >= 1;
-        smp[u] = direct ? sample<G>(dt, P.nr, P.nc, fz, vr, vc, gs, &g1[u],
-                                    &g2[u])
-                        : sample<G>(st, P.nr, P.nc, fz, vr, vc, gs, &g1[u],
-                                    &g2[u]);
+        smp[u] = direct ? sample<G, BF16>(dt, P.nr, P.nc, fz, vr, vc, gs,
+                                          &g1[u], &g2[u])
+                        : sample<G, BF16>(st, P.nr, P.nc, fz, vr, vc, gs,
+                                          &g1[u], &g2[u]);
         if (MODE >= 1) {
           g1[u] *= (float)P.nc / sc[S_EX1];
           g2[u] *= (float)P.nr / sc[S_EX2];
@@ -725,10 +780,26 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
         const float inv = rsqrtf(n1 * n1 + n2 * n2 + na * na + 1e-12f);
         float total =
             fabsf(sc[S_LD1] * n1 + sc[S_LD2] * n2 + sc[S_LDA] * na) * inv;
-        for (int i = 0; i < P.n_extra; ++i) {
-          const float* e = sc + S_EL0 + 4 * i;
-          total += 0.5f * (fabsf(e[0] * n1 + e[1] * n2 + e[2] * na) * inv)
-                   * e[3];
+        if (LIGHTS) {
+          // extra lights in table order: directional |d.n| I / 2, then
+          // point lights |(p - x).n| I / (2 |p - x|^3) at the sample's
+          // world position x (the fan row's q, the plane's axial z)
+          for (int i = 0; i < P.n_dir; ++i) {
+            const float4 e = lts[i];
+            total += 0.5f * (fabsf(e.x * n1 + e.y * n2 + e.z * na) * inv)
+                     * e.w;
+          }
+          const float x2p = ortho ? q[u] + sc[S_DW2] * lam
+                                  : sc[S_EW2] + q[u] * lam;
+          const float z_abs = sc[S_ZA0] + sc[S_ZSG] * z_rel;
+          for (int i = P.n_dir; i < P.n_lights; ++i) {
+            const float4 e = lts[i];
+            const float d1p = e.x - x1, d2p = e.y - x2p, dap = e.z - z_abs;
+            const float r2 = d1p * d1p + d2p * d2p + dap * dap;
+            const float cos_p = fabsf(d1p * n1 + d2p * n2 + dap * na) * inv
+                                * rsqrtf(fmaxf(r2, 1e-12f));
+            total += 0.5f * (cos_p / fmaxf(r2, 1e-6f)) * e.w;
+          }
         }
         if (MODE == 2) {
           // shadow: z-lerped lattice planes, bilinear over the global box
@@ -750,12 +821,21 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
           const int o10 = min(lr0 + 1, P.lr - 1) * P.lc + lc0;
           const int o11 = min(lr0 + 1, P.lr - 1) * P.lc + min(lc0 + 1, P.lc - 1);
           const float gl = 1.0f - fzl;
-          const float l00 = __ldg(la0 + o00) * gl + __ldg(la1 + o00) * fzl;
-          const float l01 = __ldg(la0 + o01) * gl + __ldg(la1 + o01) * fzl;
-          const float l10 = __ldg(la0 + o10) * gl + __ldg(la1 + o10) * fzl;
-          const float l11 = __ldg(la0 + o11) * gl + __ldg(la1 + o11) * fzl;
-          const float sh = (l00 * (1.0f - lfr) + l10 * lfr) * (1.0f - lfc)
-                           + (l01 * (1.0f - lfr) + l11 * lfr) * lfc;
+          auto tap = [&](int o) {
+            return zlerp<BF16>(__ldg(la0 + o), __ldg(la1 + o), gl, fzl);
+          };
+          const float l00 = tap(o00), l01 = tap(o01);
+          const float l10 = tap(o10), l11 = tap(o11);
+          float sh;
+          if (BF16) {
+            const float wr0 = rb(1.0f - lfr), wr1 = rb(lfr);
+            const float wc0 = rb(1.0f - lfc), wc1 = rb(lfc);
+            sh = rb(rb(l00) * wr0 + rb(l10) * wr1) * wc0
+                 + rb(rb(l01) * wr0 + rb(l11) * wr1) * wc1;
+          } else {
+            sh = (l00 * (1.0f - lfr) + l10 * lfr) * (1.0f - lfc)
+                 + (l01 * (1.0f - lfr) + l11 * lfr) * lfc;
+          }
           total *= 1.0f - clampf(sh, 0.0f, 1.0f);
         }
         const float shade = 0.5f + total;
@@ -813,42 +893,65 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
 
 typedef void (*KernelFn)(Params);
 
-template <typename T, int MODE, bool FD>
+template <typename T, int MODE, bool FD, bool BF16, bool LIGHTS>
 static KernelFn pick_count(bool count) {
-  return count ? &swslice_kernel<T, MODE, FD, true>
-               : &swslice_kernel<T, MODE, FD, false>;
+  return count ? &swslice_kernel<T, MODE, FD, true, BF16, LIGHTS>
+               : &swslice_kernel<T, MODE, FD, false, BF16, LIGHTS>;
+}
+
+template <typename T, int MODE, bool FD, bool BF16>
+static KernelFn pick_lights(bool lights, bool count) {
+  return lights ? pick_count<T, MODE, FD, BF16, true>(count)
+                : pick_count<T, MODE, FD, BF16, false>(count);
+}
+
+template <typename T, bool BF16>
+static KernelFn pick_mode(int mode, bool fd, bool lights, bool count) {
+  // mode 0 shades nothing, so it has no light-table variant
+  if (mode == 0) return pick_count<T, 0, false, BF16, false>(count);
+  if (mode == 1)
+    return fd ? pick_lights<T, 1, true, BF16>(lights, count)
+              : pick_lights<T, 1, false, BF16>(lights, count);
+  return fd ? pick_lights<T, 2, true, BF16>(lights, count)
+            : pick_lights<T, 2, false, BF16>(lights, count);
 }
 
 template <typename T>
-static KernelFn pick_typed(int mode, bool fd, bool count) {
-  if (mode == 0) return pick_count<T, 0, false>(count);
-  if (mode == 1)
-    return fd ? pick_count<T, 1, true>(count) : pick_count<T, 1, false>(count);
-  return fd ? pick_count<T, 2, true>(count) : pick_count<T, 2, false>(count);
+static KernelFn pick_typed(int mode, bool fd, bool bf16, bool lights,
+                           bool count) {
+  return bf16 ? pick_mode<T, true>(mode, fd, lights, count)
+              : pick_mode<T, false>(mode, fd, lights, count);
 }
 
 static int elem_size(int dtype) {
   return dtype == 0 ? 4 : dtype == 2 ? 1 : 2;
 }
 
-// The variant for (dtype, mode, fd, count), its threads per block and its
-// dynamic shared memory (table, per-plane bits, windows and schedule, and
-// the slab buffers where the grid's rows can be staged: without them the
-// L1 cache keeps that room); null for an unknown dtype.
-static KernelFn variant(int dtype, int mode, int fd, int count, int n_tab,
-                        int n_slices, bool staged, int* threads,
-                        size_t* smem, int* fp_off, int* ring_off) {
+// The variant for (dtype, mode, fd, bf16, lights, count), its threads per
+// block and its dynamic shared memory (the RGBA and light tables,
+// per-plane bits, windows and schedule, and the slab buffers where the
+// grid's rows can be staged: without them the L1 cache keeps that room);
+// null for an unknown dtype.
+static KernelFn variant(int dtype, int mode, int fd, int bf16, int n_lights,
+                        int count, int n_tab, int n_slices, bool staged,
+                        int* threads, size_t* smem, int* fp_off,
+                        int* ring_off) {
   const bool fd_on = mode >= 1 && fd;
+  const bool lights = n_lights > 0;
   KernelFn k;
   switch (dtype) {
-    case 0: k = pick_typed<float>(mode, fd_on, count); break;
-    case 1: k = pick_typed<bf16_t>(mode, fd_on, count); break;
-    case 2: k = pick_typed<unsigned char>(mode, fd_on, count); break;
-    case 3: k = pick_typed<unsigned short>(mode, fd_on, count); break;
+    case 0: k = pick_typed<float>(mode, fd_on, bf16, lights, count); break;
+    case 1: k = pick_typed<bf16_t>(mode, fd_on, bf16, lights, count); break;
+    case 2:
+      k = pick_typed<unsigned char>(mode, fd_on, bf16, lights, count);
+      break;
+    case 3:
+      k = pick_typed<unsigned short>(mode, fd_on, bf16, lights, count);
+      break;
     default: return nullptr;
   }
   const int words = (2 * (n_slices / 32 + 2) + 3) / 4 * 4;
-  *fp_off = 16 * n_tab + 4 * words;
+  *fp_off = 16 * (n_tab + n_lights) + 4 * words;
   *ring_off = *fp_off + (12 * n_slices + 15) / 16 * 16;
   *smem = (size_t)*ring_off
           + (staged ? (size_t)NBUF * CR * CC * elem_size(dtype) : 0);
@@ -879,25 +982,31 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
                        const float* pg, int wi, const float* qg, int hi,
                        const int* k0, int n_slices, const float* lgrid,
                        const int* k0l, int la, int lr, int lc,
+                       const float* lights, int n_lights, int n_dir,
                        const float* maj, int ma, int mr, int mc, int flip,
-                       int mode, int fd, int n_extra, int term, float* out,
+                       int mode, int fd, int bf16, int term, float* out,
                        int* block_planes, int* pixel_samples,
                        int* stage_counts, void* stream) {
-  if (n_tab < 1 || n_tab > MAX_TAB || mode < 0 || mode > 2 || n_extra < 0
-      || n_extra > 4 || wi < 1 || hi < 1 || n_slices < 0 || na < 2)
+  if (n_tab < 1 || n_tab > MAX_TAB || mode < 0 || mode > 2 || wi < 1
+      || hi < 1 || n_slices < 0 || na < 2)
+    return (int)cudaErrorInvalidValue;
+  // a light table only where the frame is shaded
+  if (n_lights < 0 || n_dir < 0 || n_dir > n_lights
+      || (n_lights > 0 && (lights == nullptr || mode == 0)))
     return (int)cudaErrorInvalidValue;
   if (dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
   int threads, fp_off, ring_off;
   size_t smem;
   const int count = pixel_samples != nullptr || stage_counts != nullptr;
   const int g = copy_bytes(grid, sa, sr, sc, nr, nc, elem_size(dtype));
-  const KernelFn k = variant(dtype, mode, fd, count, n_tab, n_slices, g > 0,
-                             &threads, &smem, &fp_off, &ring_off);
+  const KernelFn k = variant(dtype, mode, fd, bf16, n_lights, count, n_tab,
+                             n_slices, g > 0, &threads, &smem, &fp_off,
+                             &ring_off);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   Params P{grid, sa, sr, sc, na, nr, nc, tab, n_tab, scal, pg, wi, qg, hi,
-           k0, n_slices, lgrid, k0l, la, lr, lc, maj, ma, mr, mc, flip,
-           n_extra, term, out, block_planes, pixel_samples, stage_counts,
-           g, n_slices / 32 + 2, fp_off, ring_off};
+           k0, n_slices, lgrid, k0l, la, lr, lc, lights, n_lights, n_dir,
+           maj, ma, mr, mc, flip, term, out, block_planes, pixel_samples,
+           stage_counts, g, n_slices / 32 + 2, fp_off, ring_off};
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -913,16 +1022,17 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
 // counts) runs.
 int ovr_swslice_occupancy(const void* grid, long long sa, long long sr,
                           long long sc, int nr, int nc, int dtype, int mode,
-                          int fd,
-                          int n_tab, int n_slices, int* threads,
-                          int* smem_bytes, int* blocks_per_sm) {
+                          int fd, int bf16, int n_lights, int n_tab,
+                          int n_slices, int* threads, int* smem_bytes,
+                          int* blocks_per_sm) {
   if (dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
   int fp_off, ring_off;
   size_t smem;
   const bool staged =
       copy_bytes(grid, sa, sr, sc, nr, nc, elem_size(dtype)) > 0;
-  const KernelFn k = variant(dtype, mode, fd, 0, n_tab, n_slices, staged,
-                             threads, &smem, &fp_off, &ring_off);
+  const KernelFn k = variant(dtype, mode, fd, bf16, mode >= 1 ? n_lights : 0,
+                             0, n_tab, n_slices, staged, threads, &smem,
+                             &fp_off, &ring_off);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)smem;
   cudaError_t e = cudaFuncSetAttribute(

@@ -6,9 +6,21 @@ shear-warp renderer in one launch of the CUDA kernel in
 `_kernel_persist` and `_kernel`). For each fan pixel and each plane of
 the schedule it z-lerps two voxel slabs, resamples bilinearly into the
 fan, classifies through the merged RGBA table, opacity-corrects with the
-exact plane/ray overlap, in modes 1/2 shades with a fan-space gradient
-(and mode 2's shadow lattice), and composites into 8 channels
+exact plane/ray overlap, in modes 1/2 shades with a fan-space gradient,
+the primary light, a table of extra directional and point lights (and
+mode 2's shadow lattice), and composites into 8 channels
 [r, g, b, nx, ny, nz, depth, alpha] (premultiplied; alpha = 1 - T).
+
+`bf16=True` is the JAX kernel's `bf16=True` variant: every operand of
+its resampling matmuls is rounded to bfloat16 (round to nearest even)
+and the products are summed in f32. Here the resampling is a bilinear
+read, so the same values are rounded where they arise: the z-lerped
+plane (formed in f32 as one fma, `_lerp_fma`), the row weights with the
+storage scale folded in, the row-resampled values before the column
+step, the column weights, the analytic gradient's derivative weights,
+and mode 2's lattice plane, its weights and its row result. The TF
+lookup and the FD differences stay f32, as in the JAX kernel. An f32
+grid whose view has a multiple of 16 rows is read as bf16 (`_streamed`).
 
 Work avoidance, per CUDA block of BLOCK_ROWS x BLOCK_COLS fan pixels:
 - a plane whose slab pair and the block's voxel footprint lie only in
@@ -23,9 +35,12 @@ semantics included, so the kernel can be held against it at tight
 tolerances; the wrapper takes it for CPU tensors only.
 
 Arguments follow `ovr_tpu.ops.swslice.slice_composite_pallas` (the
-72-slot scalar layout below included), without the TPU tiling knobs.
-`axial_flip` lets the caller pass a storage-ordered volume (and
-majorant grid) that the schedule walks from its last plane.
+72-slot scalar layout below), without the TPU tiling knobs. Its 16
+extra-light slots (4 directional lights) became a light table of any
+length, `lights`, and two of them hold the plane's axial world
+coordinate, which point lights read. `axial_flip` lets the caller pass
+a storage-ordered volume (and majorant grid) that the schedule walks
+from its last plane.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ from ovr_tpu_torch.core.sampling import clip, storage_scale
 from ovr_tpu_torch.ops.adjoint import adjoint_sweep, over_scan
 
 LAUNCHES = 0  # kernel launches through `slice_composite`
+LAUNCHES_BF16 = 0  # of them, launches of the kernel's bf16 variant
 
 BLOCK_ROWS = 8  # fan rows per CUDA block (csrc/swslice.cu: BR)
 BLOCK_COLS = 32  # fan columns per CUDA block (csrc/swslice.cu: BC)
@@ -58,7 +74,10 @@ MAX_TAB = 2048  # RGBA table rows the kernel keeps in shared memory
  S_W00, S_W01, S_W02, S_W10, S_W11, S_W12, S_W20, S_W21, S_W22,
  S_CLO1, S_CEX1, S_CLO2, S_CEX2, S_CLA, S_CHA, S_SMP0, S_SMPSC,
  S_GLO1, S_GEX1, S_GLO2, S_GEX2) = range(48)
-S_EL0 = 48  # up to 4 extra directional lights: d_w1, d_w2, d_axis, I
+# the plane's axial world coordinate is S_ZA0 + S_ZSG * z_rel (point
+# lights); slots 50-63 are spare
+S_ZA0 = 48
+S_ZSG = 49
 S_GS = 64  # normalized-integer storage scale (set here)
 S_DP = 65  # fan column spacing (set here)
 S_DQ = 66  # fan row spacing (set here)
@@ -80,13 +99,16 @@ def _prepared_scalars(scalars, grid_dtype, pg, qg) -> torch.Tensor:
 
 
 def _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
-           k0l, n_extra):
+           k0l, lights, n_dir):
     if mode not in (0, 1, 2):
         raise ValueError(f"mode must be 0, 1 or 2, got {mode}")
     if mode == 2 and (lgrid is None or k0l is None):
         raise ValueError("mode 2 needs lgrid and k0l")
-    if not 0 <= n_extra <= 4:
-        raise ValueError(f"at most 4 extra lights, got {n_extra}")
+    n_lights = 0 if lights is None else lights.shape[0]
+    if lights is not None and (lights.ndim != 2 or lights.shape[1] != 4):
+        raise ValueError("lights must be (L, 4)")
+    if not 0 <= n_dir <= n_lights:
+        raise ValueError(f"n_dir must be in [0, {n_lights}], got {n_dir}")
     if grid_v.ndim != 3 or min(grid_v.shape) < 2:
         raise ValueError(f"grid_v must be (A, Nr, Nc) >= 2, got "
                          f"{tuple(grid_v.shape)}")
@@ -99,9 +121,25 @@ def _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
         raise ValueError("rgba_tab must be (K, 4)")
 
 
+def _streamed(grid_v, bf16: bool):
+    """The grid as the slice loop reads it. Under `bf16` an f32 grid
+    whose view has a multiple of 16 rows is rounded to bfloat16 once per
+    call, as the JAX kernel streams it: its `_storage_plan` picks bf16
+    storage for such a grid to fill the TPU's 16-row bf16 tiles
+    (`ovr_tpu/ops/swslice.py:948-966`) and casts the whole grid
+    (`:1051`); with another row count the grid stays f32. That rule of
+    the TPU's memory layout changes results, so it is kept. A u8 grid
+    that the JAX kernel streams as bf16 is exact in bf16, and u16 is
+    never cast, so other grids are read as they are."""
+    if bf16 and grid_v.dtype == torch.float32 and grid_v.shape[1] % 16 == 0:
+        return grid_v.to(torch.bfloat16)
+    return grid_v
+
+
 def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
-                    mode: int = 0, lgrid=None, k0l=None, n_extra: int = 0,
-                    majorant_v=None, term: bool = True, fd: bool = True,
+                    mode: int = 0, lgrid=None, k0l=None, lights=None,
+                    n_dir: int = 0, majorant_v=None, term: bool = True,
+                    fd: bool = True, bf16: bool = False,
                     axial_flip: bool = False,
                     block_planes: Optional[torch.Tensor] = None,
                     pixel_samples: Optional[torch.Tensor] = None,
@@ -111,11 +149,16 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
     nodal table; scalars (N_SCALARS,) in the S_* layout; pg (Wi,), qg
     (Hi,) fan coordinates; k0 (n_slices,) slab indices; mode 0/1/2 =
     none/diffuse/shadow; lgrid (La, Lr, Lc) traversal-ordered shadow
-    lattice + k0l (n_slices,) for mode 2; n_extra extra directional
-    lights in the scalars; majorant_v (MA, MR, MC) macrocell majorants
-    in grid_v's layout (enables skipping); term enables early
+    lattice + k0l (n_slices,) for mode 2; lights (L, 4) the extra lights
+    that modes 1/2 shade with, its first n_dir rows directional (fan-axis
+    direction d_w1, d_w2, d_axis and the folded intensity), the rest
+    point lights (fan-axis position p_w1, p_w2, p_axis and the folded
+    intensity), any number of each; majorant_v (MA, MR, MC) macrocell
+    majorants in grid_v's layout (enables skipping); term enables early
     termination; fd selects the finite-difference gradient (modes 1/2);
-    axial_flip walks grid_v (and majorant_v) from plane A-1 down.
+    bf16 rounds the resampling operands as the JAX kernel's bf16 variant
+    does (module note); axial_flip walks grid_v (and majorant_v) from
+    plane A-1 down.
     `block_planes`, if given, is an int32 tensor of one entry per block
     (row-major over a ceil(Hi/BLOCK_ROWS) x ceil(Wi/BLOCK_COLS) grid)
     that receives the number of planes each block composited.
@@ -132,23 +175,25 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
     Returns (8, Hi, Wi) f32. CUDA tensors run the kernel (or raise);
     CPU tensors run `slice_composite_plain`.
 
-    Differentiable in grid_v (floating point), rgba_tab, scalars, pg, qg
-    and lgrid: when grad is enabled and any of them requires it, the
-    forward runs with termination off (`term` is ignored; skipping stays
-    on) and keeps only the inputs and the final transmittance; the
+    Differentiable in grid_v (floating point), rgba_tab, scalars, pg, qg,
+    lgrid and lights: when grad is enabled and any of them requires it,
+    the forward runs with termination off (`term` is ignored; skipping
+    stays on) and keeps only the inputs and the final transmittance; the
     backward is the bounded-memory analytic adjoint (`ops.adjoint`),
-    which recomputes each plane in reverse through `plane_step`."""
+    which recomputes each plane in reverse through `plane_step`. Under
+    `bf16` the recompute rounds as the JAX package's backward does (its
+    XLA slice loop's rounding, on the grid as given)."""
     _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
-           k0l, n_extra)
-    opts = dict(n_slices=n_slices, mode=mode, n_extra=n_extra, fd=fd,
+           k0l, lights, n_dir)
+    opts = dict(n_slices=n_slices, mode=mode, n_dir=n_dir, fd=fd, bf16=bf16,
                 axial_flip=axial_flip, block_planes=block_planes,
                 pixel_samples=pixel_samples, stage_counts=stage_counts)
-    diff = (grid_v, rgba_tab, scalars, pg, qg, lgrid)
+    diff = (grid_v, rgba_tab, scalars, pg, qg, lgrid, lights)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in diff):
         return _SliceComposite.apply(*diff, k0, k0l, majorant_v, opts)
     return _run(grid_v, rgba_tab, scalars, pg, qg, k0, lgrid=lgrid, k0l=k0l,
-                majorant_v=majorant_v, term=term, **opts)
+                lights=lights, majorant_v=majorant_v, term=term, **opts)
 
 
 def _run(grid_v, rgba_tab, scalars, pg, qg, k0, *, n_slices, stage_counts,
@@ -175,12 +220,13 @@ def _bind(lib):
             p, i, p, i,  # pg, wi, qg, hi
             p, i,  # k0, n_slices
             p, p, i, i, i,  # lattice, k0l, dims
+            p, i, i,  # lights, rows, directional rows
             p, i, i, i, i,  # majorants, dims, flip
-            i, i, i, i,  # mode, fd, n_extra, term
+            i, i, i, i,  # mode, fd, bf16, term
             p, p, p, p, p]  # out, the three counts, stream
         f.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ovr_swslice_occupancy.argtypes = ([p, ll, ll, ll] + [i] * 7
+        lib.ovr_swslice_occupancy.argtypes = ([p, ll, ll, ll] + [i] * 9
                                               + [ip] * 3)
         lib.ovr_swslice_occupancy.restype = ctypes.c_int
         lib.ovr_swslice_error_string.argtypes = [ctypes.c_int]
@@ -196,7 +242,8 @@ def _bind(lib):
 
 
 def kernel_occupancy(grid_v, mode: int, fd: bool, n_tab: int,
-                     n_slices: int, axial_flip: bool = False) -> dict:
+                     n_slices: int, axial_flip: bool = False,
+                     bf16: bool = False, n_lights: int = 0) -> dict:
     """What the kernel variant and launch configuration that
     `slice_composite` runs for these arguments (without counts) take on
     the current card,
@@ -206,12 +253,13 @@ def kernel_occupancy(grid_v, mode: int, fd: bool, n_tab: int,
     from ovr_tpu_torch.ops import cuda_build
     lib = cuda_build.load("swslice").lib
     _bind(lib)
+    grid_v = _streamed(grid_v, bf16)
     base, sa, sr, scs = _grid_layout(grid_v, axial_flip)
     vals = [ctypes.c_int() for _ in range(3)]
     err = lib.ovr_swslice_occupancy(
         base, sa, sr, scs, grid_v.shape[1], grid_v.shape[2],
-        _DTYPE_CODE[grid_v.dtype], mode, int(fd), n_tab, n_slices,
-        *map(ctypes.byref, vals))
+        _DTYPE_CODE[grid_v.dtype], mode, int(fd), int(bf16), n_lights,
+        n_tab, n_slices, *map(ctypes.byref, vals))
     if err:
         raise RuntimeError("swslice occupancy query failed: "
                            + lib.ovr_swslice_error_string(err).decode())
@@ -237,20 +285,21 @@ def _check_int32(name, t, n):
 
 
 def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
-                          *, mode, lgrid, k0l, n_extra, majorant_v, term, fd,
-                          axial_flip, block_planes, pixel_samples,
-                          stage_counts):
-    global LAUNCHES
+                          *, mode, lgrid, k0l, lights, n_dir, majorant_v,
+                          term, fd, bf16, axial_flip, block_planes,
+                          pixel_samples, stage_counts):
+    global LAUNCHES, LAUNCHES_BF16
     from ovr_tpu_torch.ops import cuda_build
 
     dev = grid_v.device
-    for t in (rgba_tab, scalars, pg, qg, k0, lgrid, k0l, majorant_v,
+    for t in (rgba_tab, scalars, pg, qg, k0, lgrid, k0l, lights, majorant_v,
               block_planes, pixel_samples, stage_counts):
         if t is not None and t.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
     if rgba_tab.shape[0] > MAX_TAB:
         raise ValueError(f"rgba_tab has more than {MAX_TAB} rows")
     launch = _bind(cuda_build.load("swslice").lib)
+    grid_v = _streamed(grid_v, bf16)
     n_a, n_r, n_c = grid_v.shape
     hi, wi = qg.shape[0], pg.shape[0]
     pgf = pg.to(torch.float32).contiguous()
@@ -266,6 +315,11 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
     else:
         la = lr = lc = 0
         lg_p = k0l_p = None
+    if lights is not None and mode >= 1 and lights.shape[0] > 0:
+        lt = lights.to(torch.float32).contiguous()
+        n_lt, lt_p = lt.shape[0], lt.data_ptr()
+    else:
+        n_lt, lt_p, n_dir = 0, None, 0
     if majorant_v is not None:
         maj = majorant_v.to(torch.float32).contiguous()
         (ma, mr, mcn), maj_p = maj.shape, maj.data_ptr()
@@ -287,8 +341,9 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
             pgf.data_ptr(), wi, qgf.data_ptr(), hi,
             k0i.data_ptr(), n_slices,
             lg_p, k0l_p, la, lr, lc,
+            lt_p, n_lt, n_dir,
             maj_p, ma, mr, mcn, int(axial_flip),
-            mode, int(fd), n_extra, int(term),
+            mode, int(fd), int(bf16), int(term),
             out.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (block_planes, pixel_samples, stage_counts)),
@@ -298,6 +353,7 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
         raise RuntimeError("swslice kernel launch failed: "
                            + lib.ovr_swslice_error_string(err).decode())
     LAUNCHES += 1
+    LAUNCHES_BF16 += int(bf16)
     return out
 
 
@@ -307,18 +363,19 @@ class _SliceComposite(torch.autograd.Function):
     `_shaded_loop` custom VJPs)."""
 
     @staticmethod
-    def forward(ctx, grid_v, rgba_tab, scalars, pg, qg, lgrid, k0, k0l,
-                majorant_v, opts):
+    def forward(ctx, grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, k0,
+                k0l, majorant_v, opts):
         # termination off: the adjoint rebuilds T_k from the final
         # transmittance by dividing out each plane's (1 - a_k), so a
         # truncated forward would corrupt every rebuilt T. Skipping is
         # exact (skipped planes have zero opacity) and stays on.
         out = _run(grid_v, rgba_tab, scalars, pg, qg, k0, lgrid=lgrid,
-                   k0l=k0l, majorant_v=majorant_v, term=False, **opts)
-        ctx.opts = {k: opts[k] for k in ("n_slices", "mode", "n_extra",
-                                         "fd", "axial_flip")}
-        ctx.save_for_backward(grid_v, rgba_tab, scalars, pg, qg, lgrid, k0,
-                              k0l, 1.0 - out[7])
+                   k0l=k0l, lights=lights, majorant_v=majorant_v,
+                   term=False, **opts)
+        ctx.opts = {k: opts[k] for k in ("n_slices", "mode", "n_dir", "fd",
+                                         "bf16", "axial_flip")}
+        ctx.save_for_backward(grid_v, rgba_tab, scalars, pg, qg, lgrid,
+                              lights, k0, k0l, 1.0 - out[7])
         return out
 
     @staticmethod
@@ -331,12 +388,18 @@ class _SliceComposite(torch.autograd.Function):
         return (*out, None, None, None, None)
 
 
-def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, k0, k0l, t_final,
-             cot, *, n_slices, mode, n_extra, fd, axial_flip):
-    """Cotangents of (grid_v, rgba_tab, scalars, pg, qg, lgrid) for the
-    output cotangent `cot` (8, Hi, Wi): the adjoint sweep over the planes
-    of `_plane_params`, then the chain through `_setup` back to the
-    scalars and fan coordinates."""
+def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, k0, k0l,
+             t_final, cot, *, n_slices, mode, n_dir, fd, bf16, axial_flip):
+    """Cotangents of (grid_v, rgba_tab, scalars, pg, qg, lgrid, lights)
+    for the output cotangent `cot` (8, Hi, Wi): the adjoint sweep over
+    the planes of `_plane_params`, then the chain through `_setup` back
+    to the scalars and fan coordinates.
+
+    Under `bf16` the planes are recomputed as the JAX package's backward
+    recomputes them (`_plane_fields`, `_shade_fields` and the unshaded
+    step `f` with `sw.bf16`): the resampling operands rounded from the
+    grid as given (not `_streamed`), the storage scale on the plane, and
+    the classifier's weights and table rounded too (`_classify_impl`)."""
     f32 = torch.float32
     fd_on = mode >= 1 and fd
     leaves = [t.requires_grad_(True) for t in (scalars, pg, qg)]
@@ -349,8 +412,11 @@ def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, k0, k0l, t_final,
                       for k in k0.tolist()])
     if mode == 2:
         params.update(lgrid=lgrid.to(f32), k0l=k0l.tolist())
+    if mode >= 1 and lights is not None:
+        params["lights"] = lights.to(f32)
     step = _plane_params(grid_v, mode=mode, fd_on=fd_on, ortho=ortho,
-                         n_extra=n_extra, axial_flip=axial_flip)
+                         n_dir=n_dir, axial_flip=axial_flip,
+                         rounding="xla" if bf16 else None)
     if mode == 0:
         # as the JAX package's unshaded backward (the VJP of over_scan):
         # T_final from the recomputed composite, since 1 - alpha in f32
@@ -363,10 +429,12 @@ def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, k0, k0l, t_final,
     d_sc, d_pg, d_qg = torch.autograd.grad(
         [t for t, _ in pairs], leaves, [c for _, c in pairs],
         allow_unused=True)
-    return g["grid"], g["tab"], d_sc, d_pg, d_qg, g.get("lgrid")
+    return (g["grid"], g["tab"], d_sc, d_pg, d_qg, g.get("lgrid"),
+            g.get("lights"))
 
 
-def _plane_params(grid_v, *, mode, fd_on, ortho, n_extra, axial_flip):
+def _plane_params(grid_v, *, mode, fd_on, ortho, n_dir, axial_flip,
+                  rounding):
     """The adjoint's step: plane k of the loop as (v (7, Hi, Wi), a) from
     the params dict of `_adjoint` (or its slab windows). Modes >= 1
     recompute plane k-1's sample for the axial difference, as the JAX
@@ -392,7 +460,7 @@ def _plane_params(grid_v, *, mode, fd_on, ortho, n_extra, axial_flip):
         if mode >= 1:
             km = max(k - 1, 0)
             prev, _ = _resample(*slabs(km), p["fz"][km], p["lam"][km], S,
-                                p["pg"], p["q_smp"], ortho)
+                                p["pg"], p["q_smp"], ortho, rounding)
             prev = prev[1:-1] if fd_on else prev
         if mode == 2:
             lg, ka = p["lgrid"], p["k0l"][k]
@@ -400,9 +468,10 @@ def _plane_params(grid_v, *, mode, fd_on, ortho, n_extra, axial_flip):
         has_prev = torch.full(p["lin"].shape, k > 0, dtype=torch.bool,
                               device=p["lin"].device)
         vals, a, _ = plane_step(*slabs(k), k, p["tab"], S, p, mode=mode,
-                                fd_on=fd_on, ortho=ortho, n_extra=n_extra,
+                                fd_on=fd_on, ortho=ortho,
+                                lights=p.get("lights"), n_dir=n_dir,
                                 prev=prev, has_prev=has_prev,
-                                lattice=lattice)
+                                lattice=lattice, rounding=rounding)
         return torch.stack(vals), a
 
     return step
@@ -515,7 +584,8 @@ def _setup(scalars, grid_dtype, pg, qg, n_slices: int, mode: int,
     halo row at each end for the FD gradient), each fan pixel's clip-box
     interval "lin"/"lout" and box exit "exit", its "speed" (|d| per unit
     of the ray parameter), and per plane the ray parameter "lam", the
-    axial texel fraction "fz" and, in mode 2, the lattice's "fzl".
+    axial texel fraction "fz", the axial world coordinate "zabs" and, in
+    mode 2, the lattice's "fzl".
     Returns (that dict, ortho)."""
     f32 = torch.float32
     dev = pg.device
@@ -548,7 +618,8 @@ def _setup(scalars, grid_dtype, pg, qg, n_slices: int, mode: int,
     c = torch.minimum(c, S[S_NA] - 1.0)
     kf = torch.minimum(torch.clamp(torch.floor(c), min=0.0), S[S_NA] - 2.0)
     geo = dict(sc=sc, pg=pg, qg=qg, lin=l_in, lout=l_out, exit=exit_t,
-               speed=speed, lam=z_rel * S[S_DLAM] + S[S_LAM0], fz=c - kf)
+               speed=speed, lam=z_rel * S[S_DLAM] + S[S_LAM0], fz=c - kf,
+               zabs=S[S_ZA0] + S[S_ZSG] * z_rel)
     if mode == 2:
         cl = torch.clamp(z_rel / S[S_EXA] * S[S_NLA] - 0.5, min=0.0)
         cl = torch.minimum(cl, S[S_NLA] - 1.0)
@@ -563,28 +634,78 @@ def _setup(scalars, grid_dtype, pg, qg, n_slices: int, mode: int,
     return geo, ortho
 
 
-def _resample(g0, g1, fz, lam, S, pg, q_smp, ortho):
+def bf16_round(x):
+    """x rounded to bfloat16 (to nearest, ties to even), kept in f32. Its
+    gradient is rounded so too, as the VJP of JAX's `astype` is."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _lerp_fma(a, b, f):
+    """a * (1 - f) + b * f as one fused multiply-add, fma(a, 1 - f, b * f),
+    the form the JAX package's loops take on the CPU (XLA contracts the
+    z-lerp so). With bf16 operands after it this matters: bf16-valued
+    voxels lerped at f = 1/4 or 3/4 often land on a bf16 rounding tie,
+    which the last bit of the lerp decides. A product of two f32 is
+    exact in f64, so this is the fma's result wherever the f64 sum is
+    exact too (for bf16-valued voxels, unless its terms lie more than
+    2^21 apart) and elsewhere unless that sum's rounding lands on an f32
+    rounding tie (about one sum in 2^29)."""
+    f64 = torch.float64
+    return (a.to(f64) * (1.0 - f).to(f64) + (b * f).to(f64)).to(torch.float32)
+
+
+def _resample(g0, g1, fz, lam, S, pg, q_smp, ortho, rounding=None):
     """Slabs g0, g1 (Nr, Nc) z-lerped at fz and resampled bilinearly at
     the fan rows q_smp and columns pg of plane lam. Returns the sample
     field and the parts the analytic gradient reads: (smp, (t0, t1, v00,
-    v01, v10, v11, fr (rows,), fc (1, Wi))). The taps are gathered a row
-    index, then a column index at a time, so their backward is two
-    index_adds, not a sort-based index_put."""
+    v01, v10, v11, fr (rows,), fc (1, Wi), wc0, wc1, wgs)): the
+    row-resampled values, the four taps, the fractions, the column
+    weights and the storage scale of the derivative weights. The taps
+    are gathered a row index, then a column index at a time, so their
+    backward is two index_adds, not a sort-based index_put.
+
+    `rounding` None is f32 throughout. "kernel" rounds to bf16 what the
+    JAX kernel's bf16 variant rounds (module note): the plane, the row
+    weights with the storage scale folded in, the row results and the
+    column weights; products of rounded values are exact in f32, so each
+    sum of two rounds once, as the matmul's f32 accumulation does.
+    "xla" rounds as the JAX package's XLA slice loop does under
+    `sw_bf16` (`_plane_fields`): the storage scale on the plane, the row
+    weights without it. Both form the z-lerp as one fma (`_lerp_fma`)."""
     n_r, n_c = g0.shape
-    plane = g0 * (1.0 - fz) + g1 * fz
+    if rounding is None:
+        plane = g0 * (1.0 - fz) + g1 * fz
+    else:
+        plane = _lerp_fma(g0, g1, fz)
     ir0, ir1, fr = _taps(_vr_of(S, q_smp, lam, n_r, ortho), n_r)
     ic0, ic1, fc = _taps(_vc_of(S, pg, lam, n_c, ortho), n_c)
+    gs = S[S_GS]
+    fcr = fc[None, :]
+    if rounding is None:
+        wr0 = ((1.0 - fr) * gs)[:, None]
+        wr1 = (fr * gs)[:, None]
+        wc0, wc1, wgs = 1.0 - fcr, fcr, gs
+    elif rounding == "kernel":
+        plane = bf16_round(plane)
+        wr0 = bf16_round((1.0 - fr) * gs)[:, None]
+        wr1 = bf16_round(fr * gs)[:, None]
+        wc0, wc1, wgs = bf16_round(1.0 - fcr), bf16_round(fcr), bf16_round(gs)
+    else:
+        plane = bf16_round(plane * gs)
+        wr0 = bf16_round(1.0 - fr)[:, None]
+        wr1 = bf16_round(fr)[:, None]
+        wc0, wc1, wgs = bf16_round(1.0 - fcr), bf16_round(fcr), 1.0
     p0, p1 = plane.index_select(0, ir0), plane.index_select(0, ir1)
     v00, v01 = p0.index_select(1, ic0), p0.index_select(1, ic1)
     v10, v11 = p1.index_select(1, ic0), p1.index_select(1, ic1)
-    gs = S[S_GS]
-    wr0 = ((1.0 - fr) * gs)[:, None]
-    wr1 = (fr * gs)[:, None]
     t0 = v00 * wr0 + v10 * wr1
     t1 = v01 * wr0 + v11 * wr1
-    fcr = fc[None, :]
-    return t0 * (1.0 - fcr) + t1 * fcr, (t0, t1, v00, v01, v10, v11, fr,
-                                          fcr)
+    if rounding is None:
+        smp = t0 * (1.0 - fcr) + t1 * fcr
+    else:
+        t0, t1 = bf16_round(t0), bf16_round(t1)
+        smp = t0 * wc0 + t1 * wc1
+    return smp, (t0, t1, v00, v01, v10, v11, fr, fcr, wc0, wc1, wgs)
 
 
 class _Classify(torch.autograd.Function):
@@ -592,11 +713,15 @@ class _Classify(torch.autograd.Function):
     cotangents of `ovr_tpu.render.shearwarp._classify_dense`: the table's
     is the per-pixel weighted histogram; the sample's and the value
     range's are zero where the normalized value is at or outside [0, 1],
-    where the node coordinate is at 0 or K-1, and exactly on a node."""
+    where the node coordinate is at 0 or K-1, and exactly on a node.
+    `rounded` rounds the two weights and the table to bf16 in the
+    forward, as `_classify_impl` does under `sw_bf16`; the cotangents
+    stay f32, as that custom VJP's do."""
 
     @staticmethod
-    def forward(ctx, smp, tab, vlo, vscale):
-        rgba, (v_raw, cc, f, i0, i1) = _classify_taps(smp, tab, vlo, vscale)
+    def forward(ctx, smp, tab, vlo, vscale, rounded):
+        rgba, (v_raw, cc, f, i0, i1) = _classify_taps(smp, tab, vlo, vscale,
+                                                      rounded)
         live = ((cc > 0.0) & (cc < tab.shape[0] - 1.0) & (v_raw > 0.0)
                 & (v_raw < 1.0) & (f[..., 0] > 0.0))
         ctx.save_for_backward(smp, tab, vlo, vscale, f, i0, i1, live)
@@ -619,7 +744,7 @@ class _Classify(torch.autograd.Function):
         d_v = torch.where(live, torch.sum(cot * step, dim=-1) * (n_tab - 1),
                           0.0)
         return (d_v * vscale, d_tab, -torch.sum(d_v) * vscale,
-                torch.sum(d_v * (smp - vlo)))
+                torch.sum(d_v * (smp - vlo)), None)
 
 
 def _rows(table, idx):
@@ -628,7 +753,7 @@ def _rows(table, idx):
         *idx.shape, table.shape[1])
 
 
-def _classify_taps(smp, tab, vlo, vscale):
+def _classify_taps(smp, tab, vlo, vscale, rounded=False):
     """The lookup's result and its (v_raw, node coordinate, weight of
     the upper node (..., 1), lower and upper node indices)."""
     n_tab = tab.shape[0]
@@ -638,19 +763,26 @@ def _classify_taps(smp, tab, vlo, vscale):
     f = (cc - i0f)[..., None]
     i0 = i0f.long()
     i1 = torch.clamp(i0 + 1, max=n_tab - 1)
-    return _rows(tab, i0) * (1.0 - f) + _rows(tab, i1) * f, (v_raw, cc, f,
-                                                             i0, i1)
+    taps = (v_raw, cc, f, i0, i1)
+    if rounded:
+        tab = bf16_round(tab)
+        return (_rows(tab, i0) * bf16_round(1.0 - f)
+                + _rows(tab, i1) * bf16_round(f)), taps
+    return _rows(tab, i0) * (1.0 - f) + _rows(tab, i1) * f, taps
 
 
 def plane_step(g0, g1, j, tab, S, geo, *, mode: int, fd_on: bool,
-               ortho: bool, n_extra: int, prev=None, has_prev=None,
-               lattice=None):
+               ortho: bool, lights=None, n_dir: int = 0, prev=None,
+               has_prev=None, lattice=None, rounding=None):
     """One plane of the slice loop: slabs g0, g1 (Nr, Nc) f32 (z-lerped
     at geo["fz"][j]), the merged table `tab`, the scalars S (unbound) and
     `_setup`'s dict `geo`. Modes >= 1 take `prev`, the previous plane's
     sample field, and the bool (Hi, Wi) `has_prev`, where it exists (the
-    axial difference is 0 elsewhere); mode 2 takes `lattice` = (lattice
-    slab k0l[j], slab k0l[j]+1), lerped at geo["fzl"][j].
+    axial difference is 0 elsewhere), and shade with the light table
+    `lights` (L, 4) (first `n_dir` rows directional, the rest point
+    lights; `slice_composite`); mode 2 takes `lattice` = (lattice slab
+    k0l[j], slab k0l[j]+1), lerped at geo["fzl"][j]. `rounding`: None,
+    "kernel" or "xla" (`_resample`; "xla" also rounds the classifier).
 
     Returns (vals, a, smp): the seven values [r, g, b, nx, ny, nz, depth]
     (Hi, Wi) each, the opacity (Hi, Wi) (mode 0 leaves its cap at
@@ -660,11 +792,12 @@ def plane_step(g0, g1, j, tab, S, geo, *, mode: int, fd_on: bool,
     lam = geo["lam"][j]
     pg, qg, speed = geo["pg"], geo["qg"], geo["speed"]
     wi = pg.shape[0]
-    smp_e, (t0, t1, v00, v01, v10, v11, fr, fcr) = _resample(
-        g0, g1, geo["fz"][j], lam, S, pg, geo["q_smp"], ortho)
+    smp_e, (t0, t1, v00, v01, v10, v11, fr, fcr, wc0, wc1, wgs) = _resample(
+        g0, g1, geo["fz"][j], lam, S, pg, geo["q_smp"], ortho, rounding)
     smp = smp_e[1:-1] if fd_on else smp_e
 
-    rgba = _Classify.apply(smp, tab, S[S_VLO], S[S_VSCALE])
+    rgba = _Classify.apply(smp, tab, S[S_VLO], S[S_VSCALE],
+                           rounding == "xla")
     if mode >= 1:
         # the JAX package shades the unclipped colour: a colour within
         # [0, 1] passes this clamp with its whole cotangent
@@ -695,12 +828,20 @@ def plane_step(g0, g1, j, tab, S, geo, *, mode: int, fd_on: bool,
             g1 = torch.where(col == 0, fwd, torch.where(
                 col >= wi - 1, bwd, 0.5 * (fwd + bwd))) / (S[S_DP] * lamf)
             g2 = (smp_e[2:] - smp_e[:-2]) * (0.5 / (S[S_DQ] * lamf))
-        else:
+        elif rounding is None:
             gs = S[S_GS]
             g1 = torch.where(fcr > 0, t1 - t0, 0.0) * (n_c / S[S_EX1])
             d0 = (v10 - v00) * gs
             d1 = (v11 - v01) * gs
             g2 = torch.where(fr[:, None] > 0, d0 * (1.0 - fcr) + d1 * fcr,
+                             0.0) * (n_r / S[S_EX2])
+        else:
+            # the derivative weights are -/+ the (rounded) storage scale
+            # on the two taps: one rounding of the exact difference
+            g1 = torch.where(fcr > 0, t1 - t0, 0.0) * (n_c / S[S_EX1])
+            d0 = bf16_round(v10 * wgs - v00 * wgs)
+            d1 = bf16_round(v11 * wgs - v01 * wgs)
+            g2 = torch.where(fr[:, None] > 0, d0 * wc0 + d1 * wc1,
                              0.0) * (n_r / S[S_EX2])
         ds = torch.where(has_prev, (smp - prev) / S[S_DZDLAM], 0.0)
         k1 = S[S_K1O] if ortho else pg[None, :]
@@ -710,15 +851,13 @@ def plane_step(g0, g1, j, tab, S, geo, *, mode: int, fd_on: bool,
         inv = torch.rsqrt(n1 * n1 + n2 * n2 + na * na + 1e-12)
         total = torch.abs(S[S_LD1] * n1 + S[S_LD2] * n2
                           + S[S_LDA] * na) * inv
-        for i in range(n_extra):
-            b0 = S_EL0 + 4 * i
-            ce = torch.abs(S[b0] * n1 + S[b0 + 1] * n2
-                           + S[b0 + 2] * na) * inv
-            total = total + 0.5 * ce * S[b0 + 3]
+        if lights is not None and lights.shape[0]:
+            total = _add_lights(total, lights, n_dir, S, pg, qg, lam,
+                                geo["zabs"][j], n1, n2, na, inv, ortho)
         if mode == 2:
             total = total * (1.0 - clip(
                 _shadow(lattice, geo["fzl"][j], S, pg, geo["q_smp"], lam,
-                        fd_on, ortho), 0.0, 1.0))
+                        fd_on, ortho, rounding), 0.0, 1.0))
         shade = 0.5 + total
         vals = [clip(x * shade, 0.0, 1.0) for x in vals]
         nu = (n1 * inv, n2 * inv, na * inv)
@@ -732,11 +871,37 @@ def plane_step(g0, g1, j, tab, S, geo, *, mode: int, fd_on: bool,
     return vals, a, smp
 
 
-def _shadow(lattice, fzl, S, pg, q_smp, lam, fd_on, ortho):
-    """The shadow lattice's alpha at the fan pixels of plane lam."""
+def _add_lights(total, lights, n_dir, S, pg, qg, lam, zabs, n1, n2, na, inv,
+                ortho):
+    """`total` plus each extra light's term of the shade, added in table
+    order (`ovr_tpu.render.shearwarp._shade_fields`): a directional light
+    adds 0.5 |d.n| I, a point light at p adds 0.5 |(p - x).n| I / |p - x|^3
+    (inverse-square falloff), x the sample's world position on the plane
+    (the fan row's q, not the FD lattice's)."""
+    x1 = (pg + S[S_DW1] * lam if ortho else S[S_EW1] + pg * lam)[None, :]
+    x2 = (qg + S[S_DW2] * lam if ortho else S[S_EW2] + qg * lam)[:, None]
+    for i, (e0, e1, e2, e3) in enumerate(lt.unbind() for lt in lights):
+        if i < n_dir:
+            ce = torch.abs(e0 * n1 + e1 * n2 + e2 * na) * inv
+            total = total + 0.5 * ce * e3
+            continue
+        d1p, d2p, dap = e0 - x1, e1 - x2, e2 - zabs
+        r2 = d1p * d1p + d2p * d2p + dap * dap
+        cos_p = (torch.abs(d1p * n1 + d2p * n2 + dap * na) * inv
+                 * torch.rsqrt(torch.clamp(r2, min=1e-12)))
+        total = total + 0.5 * (cos_p / torch.clamp(r2, min=1e-6)) * e3
+    return total
+
+
+def _shadow(lattice, fzl, S, pg, q_smp, lam, fd_on, ortho, rounding=None):
+    """The shadow lattice's alpha at the fan pixels of plane lam. With
+    `rounding` the lerped lattice plane, both weights and the row
+    results are rounded to bf16, as both JAX loops round them (the
+    plane lerped as one fma, `_lerp_fma`)."""
     l0, l1 = lattice
     l_r, l_c = l0.shape
-    lp = l0 * (1.0 - fzl) + l1 * fzl
+    lp = (l0 * (1.0 - fzl) + l1 * fzl if rounding is None
+          else _lerp_fma(l0, l1, fzl))
     x1 = pg + S[S_DW1] * lam if ortho else S[S_EW1] + pg * lam
     x2 = q_smp + S[S_DW2] * lam if ortho else S[S_EW2] + q_smp * lam
     x2c = x2[1:-1] if fd_on else x2
@@ -748,11 +913,19 @@ def _shadow(lattice, fzl, S, pg, q_smp, lam, fd_on, ortho):
     lc0, lc1, lfc = _taps(lvc, l_c)
     lfr = lfr[:, None]
     lfc = lfc[None, :]
+    if rounding is None:
+        p0, p1 = lp.index_select(0, lr0), lp.index_select(0, lr1)
+        return ((p0.index_select(1, lc0) * (1.0 - lfr)
+                 + p1.index_select(1, lc0) * lfr) * (1.0 - lfc)
+                + (p0.index_select(1, lc1) * (1.0 - lfr)
+                   + p1.index_select(1, lc1) * lfr) * lfc)
+    lp = bf16_round(lp)
+    wr0, wr1 = bf16_round(1.0 - lfr), bf16_round(lfr)
+    wc0, wc1 = bf16_round(1.0 - lfc), bf16_round(lfc)
     p0, p1 = lp.index_select(0, lr0), lp.index_select(0, lr1)
-    return ((p0.index_select(1, lc0) * (1.0 - lfr)
-             + p1.index_select(1, lc0) * lfr) * (1.0 - lfc)
-            + (p0.index_select(1, lc1) * (1.0 - lfr)
-               + p1.index_select(1, lc1) * lfr) * lfc)
+    lt0, lt1 = (bf16_round(p0.index_select(1, c) * wr0
+                           + p1.index_select(1, c) * wr1) for c in (lc0, lc1))
+    return lt0 * wc0 + lt1 * wc1
 
 
 def _slabs(grid_v, k: int, axial_flip: bool):
@@ -763,14 +936,19 @@ def _slabs(grid_v, k: int, axial_flip: bool):
 
 def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
                           n_slices: int, *, mode: int = 0, lgrid=None,
-                          k0l=None, n_extra: int = 0, majorant_v=None,
-                          term: bool = True, fd: bool = True,
-                          axial_flip: bool = False, block_planes=None,
-                          pixel_samples=None):
+                          k0l=None, lights=None, n_dir: int = 0,
+                          majorant_v=None, term: bool = True, fd: bool = True,
+                          bf16: bool = False, axial_flip: bool = False,
+                          block_planes=None, pixel_samples=None):
     """The fused slice loop in PyTorch, arithmetic in the kernel's order
     and per-block skipping/termination as the kernel does them. Same
     arguments and result as `slice_composite` (without `stage_counts`)."""
     f32 = torch.float32
+    grid_v = _streamed(grid_v, bf16)
+    if mode == 0 or lights is None:
+        lights = None
+    else:
+        lights = lights.to(f32)
     dev = grid_v.device
     n_a, n_r, n_c = grid_v.shape
     hi, wi = qg.shape[0], pg.shape[0]
@@ -826,8 +1004,9 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
             lattice = (lg[ka], lg[min(ka + 1, lg.shape[0] - 1)])
         vals, a, smp = plane_step(
             grid_v[s0].to(f32), grid_v[s1].to(f32), j, tab, S, geo,
-            mode=mode, fd_on=fd_on, ortho=ortho, n_extra=n_extra, prev=prev,
-            has_prev=jpos > 0, lattice=lattice)
+            mode=mode, fd_on=fd_on, ortho=ortho, lights=lights, n_dir=n_dir,
+            prev=prev, has_prev=jpos > 0, lattice=lattice,
+            rounding="kernel" if bf16 else None)
         a = torch.clamp(a, max=1.0 - 1e-6)
         need = comp & (trans > T_EPS) & (a > 0.0)
         n_need = n_need + need.to(torch.int32)

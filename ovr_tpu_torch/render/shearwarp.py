@@ -50,6 +50,8 @@ class SwStatic:
     # two-tap gather warp here builds no weight tensor and needs none
     row_chunk: int = 16
     term: bool = True  # early ray termination in the fused kernel
+    # bf16 resampling operands in the slice loop and the warp (sw_bf16)
+    bf16: bool = False
     # shading gradient: fan-space finite differences (True) or the
     # analytic bilinear derivative (False)
     fd_grad: bool = True
@@ -146,7 +148,8 @@ def resolve_static(scene, camera, cfg) -> Optional[SwStatic]:
     big = wi >= 1024 or dims_xyz[w1] >= 512
     return SwStatic(axis=axis, sign=sign, n_slices=n_slices,
                     inter_h=hi_i, inter_w=wi, swap=swap,
-                    separable=separable, term=bool(cfg.sw_term), fd_grad=bool(big),
+                    separable=separable, term=bool(cfg.sw_term),
+                    bf16=bool(cfg.sw_bf16), fd_grad=bool(big),
                     slice0_static=slice0_static)
 
 
@@ -169,28 +172,47 @@ def _taps(pos: torch.Tensor, n: int):
                                      n - 1.0), n)
 
 
-def warp_rows(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def _weights(f, bf16: bool):
+    """The two taps' weights (1 - f, f), rounded to bf16 under `bf16`."""
+    if bf16:
+        return swslice.bf16_round(1.0 - f), swslice.bf16_round(f)
+    return 1.0 - f, f
+
+
+def warp_rows(img: torch.Tensor, pos: torch.Tensor,
+              bf16: bool = False) -> torch.Tensor:
     """Resample each row r of img (R, I, C) at continuous column
-    positions pos (R, O) -> (R, O, C), by a two-tap gather."""
+    positions pos (R, O) -> (R, O, C), by a two-tap gather. `bf16`
+    rounds the image and the weights to bf16 and sums in f32, as the JAX
+    package's weight matmuls do (`ovr_tpu.render.shearwarp.warp_rows`)."""
     r, n_in, ch = img.shape
     i0, i1, f = _taps(pos, n_in)
+    if bf16:
+        img = swslice.bf16_round(img)
     g0 = torch.gather(img, 1, i0[..., None].expand(-1, -1, ch))
     g1 = torch.gather(img, 1, i1[..., None].expand(-1, -1, ch))
-    f = f[..., None].to(img.dtype)
-    return g0 * (1.0 - f) + g1 * f
+    w0, w1 = _weights(f[..., None].to(img.dtype), bf16)
+    return g0 * w0 + g1 * w1
 
 
 def warp_separable(img: torch.Tensor, row_pos: torch.Tensor,
-                   col_pos: torch.Tensor) -> torch.Tensor:
+                   col_pos: torch.Tensor, bf16: bool = False
+                   ) -> torch.Tensor:
     """out[v, u, c] = img[row_pos[v], col_pos[u], c] (bilinear): rows,
-    then columns, each with shared positions."""
+    then columns, each with shared positions. `bf16` rounds the image,
+    the weights and the row pass's result to bf16, as the JAX package's
+    two matmuls take them (`ovr_tpu.render.shearwarp.warp_separable`)."""
     hi_i, wi_i, _ = img.shape
     r0, r1, fr = _taps(row_pos, hi_i)
-    fr = fr[:, None, None].to(img.dtype)
-    t = img[r0] * (1.0 - fr) + img[r1] * fr  # (H, Wi, C)
+    if bf16:
+        img = swslice.bf16_round(img)
+    w0, w1 = _weights(fr[:, None, None].to(img.dtype), bf16)
+    t = img[r0] * w0 + img[r1] * w1  # (H, Wi, C)
+    if bf16:
+        t = swslice.bf16_round(t)
     c0, c1, fc = _taps(col_pos, wi_i)
-    fc = fc[None, :, None].to(img.dtype)
-    return t[:, c0] * (1.0 - fc) + t[:, c1] * fc
+    w0, w1 = _weights(fc[None, :, None].to(img.dtype), bf16)
+    return t[:, c0] * w0 + t[:, c1] * w1
 
 
 def _perp_axes(axis: int) -> tuple[int, int]:
@@ -238,7 +260,7 @@ def _kernel_scalars(dt, device, *, lo1, ex1, lo2, ex2, e1, e2, dw1, dw2,
                     dzdlam=1.0, n_la=2.0, wtcp=None, clo1=None, cex1=None,
                     clo2=None, cex2=None, cla=None, cha=None, smp0=0.0,
                     smpsc=None, glo1=None, gex1=None, glo2=None, gex2=None,
-                    extra_lights=None):
+                    za0=0.0, zsg=1.0):
     """Assemble the ops.swslice scalar vector (S_* layout, N_SCALARS)."""
     if wtcp is None:
         wtcp = torch.zeros((3, 3), dtype=dt, device=device)
@@ -261,13 +283,7 @@ def _kernel_scalars(dt, device, *, lo1, ex1, lo2, ex2, e1, e2, dw1, dw2,
             wtcp[1, 0], wtcp[1, 1], wtcp[1, 2],
             wtcp[2, 0], wtcp[2, 1], wtcp[2, 2],
             clo1, cex1, clo2, cex2, cla, cha, smp0, smpsc,
-            glo1, gex1, glo2, gex2]
-    for i in range(4):  # (d_w1, d_w2, d_axis, intensity) per extra light
-        if extra_lights is not None and i < extra_lights[0].shape[0]:
-            eld, eli = extra_lights
-            vals += [eld[i, 0], eld[i, 1], eld[i, 2], eli[i]]
-        else:
-            vals += [0.0] * 4
+            glo1, gex1, glo2, gex2, za0, zsg]
     vals += [0.0] * (swslice.N_SCALARS - len(vals))
 
     def as_t(x):
@@ -279,18 +295,25 @@ def _kernel_scalars(dt, device, *, lo1, ex1, lo2, ex2, e1, e2, dw1, dw2,
 
 
 def _extra_lights_fan(scene, w1, w2, axis, dt):
-    """Extra directional (and sunSky) lights in fan-axis order: eld
-    (K, 3) components in (w1, w2, axis) order and eli (K,) =
-    2 * intensity * mean(color). (None, None) without any."""
-    dirs, dir_i = [], []
+    """The scene's extra lights as the slice loop's light table (L, 4)
+    and its count of directional rows, or (None, 0) without any:
+    directional (and sunSky) lights first, as (d_w1, d_w2, d_axis, I),
+    then point lights, as (p_w1, p_w2, p_axis, I), each with
+    I = 2 * intensity * mean(color) and its vector in fan-axis order
+    (`ovr_tpu.render.shearwarp._extra_lights_fan`). Ambient lights add
+    nothing here, as there."""
+    dirs, pts = [], []
     for lt in scene.lights:
+        inten = 2.0 * lt.intensity * torch.mean(lt.color)
         if lt.kind in ("directional", "sunsky"):
             d = safe_normalize(lt.direction)
-            dirs.append(torch.stack([d[w1], d[w2], d[axis]]))
-            dir_i.append(2.0 * lt.intensity * torch.mean(lt.color))
-    if not dirs:
-        return None, None
-    return torch.stack(dirs).to(dt), torch.stack(dir_i).to(dt)
+            dirs.append(torch.stack([d[w1], d[w2], d[axis], inten]))
+        elif lt.kind == "point":
+            p = lt.position
+            pts.append(torch.stack([p[w1], p[w2], p[axis], inten]))
+    if not dirs and not pts:
+        return None, 0
+    return torch.stack(dirs + pts).to(dt), len(dirs)
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +425,8 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     clip_scalars = dict(
         clo1=lo1, cex1=ex1, clo2=lo2, cex2=ex2, cla=cla, cha=cha,
         smp0=smp0, smpsc=n_a / ext[axis],
-        glo1=lo[w1], gex1=ext[w1], glo2=lo[w2], gex2=ext[w2])
+        glo1=lo[w1], gex1=ext[w1], glo2=lo[w2], gex2=ext[w2],
+        za0=lo[axis] if sign > 0 else hi[axis], zsg=float(sign))
     zdt = torch.zeros((), **opts)
     common = dict(
         lo1=lo1, ex1=ex1, lo2=lo2, ex2=ex2, e1=e[w1], e2=e[w2],
@@ -416,7 +440,7 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         out8 = swslice.slice_composite(
             grid, rgba_tab, _kernel_scalars(dt, dev, **common), pg, qg, k0,
             n_loc, mode=0, majorant_v=maj_v, term=sw.term, fd=sw.fd_grad,
-            axial_flip=sign < 0)
+            bf16=sw.bf16, axial_flip=sign < 0)
     else:
         # ---- shaded (diffuse/shadow) path ---------------------------------
         light_dir = safe_normalize(scene.light.direction)
@@ -425,7 +449,7 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         wtcp = wtc[:, [w1, w2, axis]]
         mode = 2 if (cfg.shading == "shadow"
                      and light_grid is not None) else 1
-        eld, eli = _extra_lights_fan(scene, w1, w2, axis, dt)
+        lights, n_dir = _extra_lights_fan(scene, w1, w2, axis, dt)
         lgrid = k0l = None
         n_la = 2.0
         if mode == 2:
@@ -439,13 +463,11 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
             dt, dev, ld=(light_dir[w1], light_dir[w2], light_dir[axis]),
             k1o=direction[w1] if ortho else zdt,
             k2o=direction[w2] if ortho else zdt, inv_da=inv_da,
-            dzdlam=dz * dlam, n_la=n_la, wtcp=wtcp,
-            extra_lights=(eld, eli) if eld is not None else None, **common)
+            dzdlam=dz * dlam, n_la=n_la, wtcp=wtcp, **common)
         out8 = swslice.slice_composite(
             grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=mode, lgrid=lgrid,
-            k0l=k0l, n_extra=0 if eld is None else eld.shape[0],
-            majorant_v=maj_v, term=sw.term, fd=sw.fd_grad,
-            axial_flip=sign < 0)
+            k0l=k0l, lights=lights, n_dir=n_dir, majorant_v=maj_v,
+            term=sw.term, fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0)
     color = out8[0:3].permute(1, 2, 0)
     grad = out8[3:6].permute(1, 2, 0)
     depth, alpha = out8[6], out8[7]
@@ -482,9 +504,10 @@ def _sw_warp_out(color, grad, depth, alpha, cfg, sw: SwStatic, p_scr, q_scr,
     if sw.separable:
         cq = q_to_row(q_scr)
         if not sw.swap:
-            out = warp_separable(stack, cq[:, 0], cp[0, :])
+            out = warp_separable(stack, cq[:, 0], cp[0, :], sw.bf16)
         else:
-            out = warp_separable(stack, cq[0, :], cp[:, 0]).transpose(0, 1)
+            out = warp_separable(stack, cq[0, :], cp[:, 0],
+                                 sw.bf16).transpose(0, 1)
     elif not sw.swap:
         vs = v[:, None]  # (H, 1)
         pi = pg[None, :]  # (1, Wi)
@@ -496,8 +519,8 @@ def _sw_warp_out(color, grad, depth, alpha, cfg, sw: SwStatic, p_scr, q_scr,
             den = horizontal[w1] - pi * horizontal[axis] * sign
             us = _safe_div(num, den)
         r1 = q_to_row(q_at(us, vs))  # (H, Wi)
-        t = warp_rows(stack.transpose(0, 1), r1.T)  # (Wi, H, C)
-        out = warp_rows(t.transpose(0, 1), cp)  # (H, W, C)
+        t = warp_rows(stack.transpose(0, 1), r1.T, sw.bf16)  # (Wi, H, C)
+        out = warp_rows(t.transpose(0, 1), cp, sw.bf16)  # (H, W, C)
     else:
         us = u[None, :]  # (1, W)
         pi = pg[:, None]  # (Wi, 1)
@@ -509,8 +532,8 @@ def _sw_warp_out(color, grad, depth, alpha, cfg, sw: SwStatic, p_scr, q_scr,
             den = vertical[w1] - pi * vertical[axis] * sign
             vs = _safe_div(num, den)
         r1 = q_to_row(q_at(us, vs))  # (Wi, W)
-        t = warp_rows(stack.transpose(0, 1), r1)  # (Wi, W, C)
-        out = warp_rows(t.transpose(0, 1), cp.T).transpose(0, 1)
+        t = warp_rows(stack.transpose(0, 1), r1, sw.bf16)  # (Wi, W, C)
+        out = warp_rows(t.transpose(0, 1), cp.T, sw.bf16).transpose(0, 1)
     color = out[..., 0:3].reshape(-1, 3)
     grad = out[..., 3:6].reshape(-1, 3)
     depth = out[..., 6].reshape(-1)

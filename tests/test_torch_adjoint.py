@@ -414,3 +414,72 @@ def test_backward_memory_is_bounded():
     (tests/test_shearwarp.py's rule): the adjoint recomputes planes."""
     small, large = _saved_bytes(16.0), _saved_bytes(256.0)
     assert large <= 2 * small + (1 << 20), (small, large)
+
+
+# ---------------------------------------------------------------------------
+# sw_bf16 and light rigs beyond the JAX kernel's slots
+# ---------------------------------------------------------------------------
+
+def _grads_with(cam, shading, kernel, wrt, rig=None, n=16, fd=None, **cfg):
+    """(port, JAX) gradients of `wrt` for one configuration, the scene
+    optionally lit by one of tests/test_torch_render.py's RIGS."""
+    from tests.test_torch_render import RIGS
+    js, ts = _scenes(cam, n=n)
+    if rig is not None:
+        js = dataclasses.replace(js, lights=RIGS[rig]())
+        ts = scene_from_arrays(arrays_from_scene(js), device="cpu")
+    jc, tc = _configs(js, ts, shading, fd=fd, **cfg)
+    if kernel:
+        jc = _forced(jc)
+    jlg, tlg = light_grids(js, jc, shading)
+    return port_grads(ts, tc, tlg, wrt), jax_grads(js, jc, jlg, wrt)
+
+
+# (camera, shading, grid edge, differentiated inputs). JAX's forward is
+# its kernel (as on a TPU, where these frames run it); its backward and
+# the port's recompute the planes as its XLA loop does. The grid's
+# gradient is held unshaded only: shaded, bf16 rounding makes a plane's
+# samples flat in places, where the normal's gradient is rounding noise
+# times 1e6 in either package (module note; measured in diffuse: 13 of
+# 4096 voxels beyond 2e-3 of JAX's largest element, a spike of 8.1e3
+# against the port's 95.5, 99th percentile 2.4e-9).
+BF16_GRAD_CASES = [
+    ("persp", "none", 16, ("grid", "alpha", "color", "value_range")),
+    ("persp", "diffuse", 16, ("alpha", "color", "value_range")),
+    ("x_neg", "shadow", 16, ("alpha", "light_grid")),
+    ("ortho", "diffuse", 32, ("alpha",)),  # an f32 grid read as bf16
+]
+
+
+@pytest.mark.parametrize("cam,shading,n,wrt", BF16_GRAD_CASES,
+                         ids=[f"{c}-{s}-{n}" for c, s, n, _ in
+                              BF16_GRAD_CASES])
+def test_bf16_grads_match_jax(cam, shading, n, wrt):
+    """The lattice's cotangent is rounded to bf16 per plane in both (the
+    VJP of the rounding), and the two sum a plane's contributions in
+    another order before it: where that straddles a rounding tie the two
+    round apart by one bf16 ulp, 2^-8 of the value (2 of 4096 elements,
+    3.5e-3 of the largest), so it is held at 4e-3."""
+    got, want = _grads_with(cam, shading, True, wrt, n=n, sw_bf16=True)
+    for k in wrt:
+        assert_grads_close(got[k], want[k],
+                           atol=4e-3 if k == "light_grid" else 2e-3)
+
+
+# (camera, shading, rig, FD gradient, differentiated inputs): JAX runs
+# these rigs through its XLA loop only
+LIGHT_GRAD_CASES = [
+    ("persp", "diffuse", "point", None,
+     ("grid", "alpha", "color", "value_range")),
+    ("x_neg", "shadow", "rig", None, ("grid", "alpha")),
+    ("ortho", "diffuse", "six", True, ("grid", "alpha")),
+]
+
+
+@pytest.mark.parametrize("cam,shading,rig,fd,wrt", LIGHT_GRAD_CASES,
+                         ids=[f"{c}-{s}-{r}" for c, s, r, _, _ in
+                              LIGHT_GRAD_CASES])
+def test_light_rig_grads_match_jax(cam, shading, rig, fd, wrt):
+    got, want = _grads_with(cam, shading, False, wrt, rig=rig, fd=fd)
+    for k in wrt:
+        assert_grads_close(got[k], want[k])

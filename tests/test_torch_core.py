@@ -3,8 +3,9 @@
 Sampling math, camera basis, finalize, macrocells, the swept shadow
 lattice, the shear-warp plan and scene conversion are fed the same numpy
 inputs in both packages. Also the port's own contract: it never imports
-JAX or `ovr_tpu`, its entry points default to the card, and features
-not yet ported raise NotImplementedError.
+JAX or `ovr_tpu`, its entry points default to the card, features not yet
+ported raise NotImplementedError, and those that raised until they were
+ported render and match the JAX package.
 """
 
 import dataclasses
@@ -30,7 +31,7 @@ from ovr_tpu.render import lightgrid as jlg
 from ovr_tpu_torch import api
 from ovr_tpu_torch.convert import arrays_from_scene, scene_from_arrays
 from ovr_tpu_torch.core import sampling
-from ovr_tpu_torch.core.scene import (Camera, Light, StructuredVolume,
+from ovr_tpu_torch.core.scene import (Camera, StructuredVolume,
                                       simple_scene)
 from ovr_tpu_torch.ops import swslice
 from ovr_tpu_torch.render import accel, camera, integrator, lightgrid
@@ -308,9 +309,8 @@ def _tiny_scene(**kw):
 
 
 @pytest.mark.parametrize("what", ["instances", "path_tracing",
-                                  "point_light", "five_lights",
-                                  "sparse_sampling", "focus", "sw_bf16",
-                                  "geometry", "neural"])
+                                  "sparse_sampling", "focus", "geometry",
+                                  "neural"])
 def test_unsupported_features_raise(what):
     scene = _tiny_scene()
     kw = dict(width=16, height=16, sampling_rate=8.0, shading="none",
@@ -327,17 +327,6 @@ def test_unsupported_features_raise(what):
         scene = _tiny_scene(instances=(object(),))
     elif what == "path_tracing":
         kw["path_tracing"] = True
-    elif what == "point_light":
-        kw["shading"] = "diffuse"
-        scene = _tiny_scene(lights=(Light.create(kind="point",
-                                                 device="cpu"),))
-    elif what == "five_lights":  # the kernel has 4 extra-light slots
-        kw["shading"] = "diffuse"
-        scene = _tiny_scene(lights=tuple(
-            Light.create(direction=(0.1 * i, 0.3, -1.0), device="cpu")
-            for i in range(5)))
-    elif what == "sw_bf16":
-        kw["sw_bf16"] = True
     elif what == "geometry":
         scene = _tiny_scene(geometries=(object(),))
     elif what == "neural":
@@ -349,6 +338,46 @@ def test_unsupported_features_raise(what):
     cfg = api.RenderConfig(**kw).resolved(scene)
     with pytest.raises(NotImplementedError, match="slice"):
         api.render(scene, cfg)
+
+
+@pytest.mark.parametrize("what", ["point_light", "five_lights", "sw_bf16"])
+def test_former_raises_render_and_match_jax(what):
+    """Shear-warp frames that raised NotImplementedError until the light
+    table and the kernel's bf16 variant were ported: a point light and
+    five extra directional lights (more than the JAX kernel's 4 slots),
+    and sw_bf16. They render through `method="auto"` (on the CPU the
+    plain version, no launch) and match the JAX package: the light rigs
+    its XLA loop (the only loop that runs them there) at 5e-5 (rgba and
+    normals) and 2e-4 (depth), sw_bf16 its kernel forward in interpret
+    mode at tests/test_torch_render.py's bf16 bound."""
+    from tests.test_torch_render import _forced, assert_bf16_frames_close
+    js = dataclasses.replace(jsimple(smooth_grid(16)), camera=JCamera.create(
+        from_=(0.5, 0.45, -1.8), at=(0.5, 0.5, 0.5), fovy=45.0))
+    kw = dict(width=16, height=16, sampling_rate=8.0, shading="diffuse",
+              method="auto", sw_term=False)
+    if what == "point_light":
+        js = dataclasses.replace(js, lights=(JLight.create(
+            kind="point", position=(0.5, 1.8, 0.5), intensity=1.2),))
+    elif what == "five_lights":
+        js = dataclasses.replace(js, lights=tuple(
+            JLight.create(direction=(0.1 * i, 0.3, -1.0)) for i in range(5)))
+    else:
+        kw["sw_bf16"] = True
+    ts = scene_from_arrays(arrays_from_scene(js), device="cpu")
+    tc = api.RenderConfig(**kw).resolved(ts)
+    jc = japi.RenderConfig(**kw).resolved(js)
+    assert tc.sw is not None and jc.sw is not None
+    before = swslice.LAUNCHES
+    tf = api.render(ts, tc)
+    assert swslice.LAUNCHES == before
+    assert float(tf.rgba[..., 3].max()) > 0.1
+    if what == "sw_bf16":
+        assert_bf16_frames_close(tf, japi.render(js, _forced(jc)))
+        return
+    jf = japi.render(js, jc)
+    for name, tol in (("rgba", 5e-5), ("grad", 5e-5), ("depth", 2e-4)):
+        np.testing.assert_allclose(getattr(tf, name).numpy(),
+                                   np.asarray(getattr(jf, name)), atol=tol)
 
 
 def test_cpu_render_never_launches():

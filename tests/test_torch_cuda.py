@@ -52,7 +52,7 @@ CAMERAS = {
 
 
 def _scene(kind="smooth", dtype="f32", cam="persp", n=48, n_lights=0,
-           device="cpu", opaque=False):
+           device="cpu", opaque=False, n_points=0):
     scene = simple_scene(_grid(_field(n, kind), dtype), device=device)
     if kind == "sparse":
         alpha = np.concatenate([np.zeros(10), np.linspace(0, 0.9, 22)])
@@ -67,17 +67,20 @@ def _scene(kind="smooth", dtype="f32", cam="persp", n=48, n_lights=0,
     lights = tuple(Light.create(direction=(0.4 * i - 0.6, 0.3, -1.0),
                                 intensity=0.5 + 0.1 * i, device=device)
                    for i in range(n_lights))
+    lights += tuple(Light.create(kind="point", position=(0.5 + i, 1.8, 0.4),
+                                 intensity=1.2 - 0.3 * i, device=device)
+                    for i in range(n_points))
     return dataclasses.replace(
         scene, camera=Camera.create(**CAMERAS[cam], device=device),
         lights=lights)
 
 
 def capture(scene, shading, fd=True, skip=False, base_rate=1.0,
-            width=72, height=56, rate=48.0):
+            width=72, height=56, rate=48.0, bf16=False):
     """The arguments the port's renderer passes to slice_composite."""
     cfg = api.RenderConfig(width=width, height=height, sampling_rate=rate,
                            shading=shading, method="shearwarp",
-                           base_rate=base_rate).resolved(scene)
+                           base_rate=base_rate, sw_bf16=bf16).resolved(scene)
     cfg = dataclasses.replace(cfg, sw=dataclasses.replace(
         cfg.sw, fd_grad=fd))
     mc = (accel.build_macrocells(scene.volume.grid, scene.tfn.alpha,
@@ -149,6 +152,42 @@ def test_kernel_matches_plain_on_card(shading, fd, skip, dtype, cam,
         for k in got:
             assert torch.equal(got[k], want[k])
         assert int(stages.sum()) >= int(got["block_planes"].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shading,fd,dtype,cam,n,lights,bf16", [
+    ("none", True, "f32", "persp", 32, (0, 0), True),
+    ("diffuse", True, "f32", "back", 24, (6, 0), True),
+    ("diffuse", False, "u8", "ortho", 48, (1, 2), True),
+    ("shadow", True, "bf16", "persp", 48, (2, 1), True),
+    ("diffuse", True, "f32", "persp", 48, (6, 1), False),
+    ("shadow", False, "u8", "back", 48, (0, 2), False),
+])
+def test_bf16_and_light_table_match_plain_on_card(shading, fd, dtype, cam, n,
+                                                  lights, bf16):
+    """The bf16 variant (an f32 grid of 32 rows read as bf16, of 24 rows
+    as f32) and the light table, with termination on and off, against the
+    plain version on the card: the same bits, the counting variant
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _scene("smooth", dtype, cam, n=n, n_lights=lights[0],
+                   n_points=lights[1], device="cuda")
+    args, kw = capture(scene, shading, fd=fd, skip=True, bf16=bf16)
+    assert kw["bf16"] == bf16
+    for term in (False, True):
+        before = swslice.LAUNCHES_BF16
+        out = swslice.slice_composite(*args, **dict(kw, term=term))
+        torch.cuda.synchronize()
+        assert swslice.LAUNCHES_BF16 == before + bf16
+        ref = swslice.slice_composite_plain(*args, **dict(kw, term=term))
+        assert torch.equal(out, ref)
+        got, want = _counts(args), _counts(args)
+        out_c = swslice.slice_composite(*args, **dict(kw, term=term, **got))
+        swslice.slice_composite_plain(*args, **dict(kw, term=term, **want))
+        assert torch.equal(out_c, out)
+        for k in got:
+            assert torch.equal(got[k], want[k])
 
 
 def _counts(args):
@@ -266,21 +305,41 @@ def test_backward_on_card_matches_cpu(shading, cam):
 
 
 @pytest.mark.cuda
-def test_five_extra_lights_raise_on_card():
-    """The kernel has slots for 4 extra directional lights: a shaded
-    frame with 5 raises instead of rendering some other way."""
+@pytest.mark.parametrize("what", ["five_lights", "point_light", "sw_bf16"])
+def test_former_raises_render_on_card(what):
+    """Five extra directional lights, a point light and sw_bf16, which
+    raised until the light table and the bf16 variant were ported: the
+    frame launches the kernel once on the card (its bf16 variant for
+    sw_bf16), never the plain version, and matches the CPU's within
+    1e-4. Under sw_bf16 the warp rounds the image to bf16, so a value
+    that the card's and the CPU's torch ops put on either side of a
+    rounding tie differs by a bf16 ulp on the screen: there at most 2.5%
+    of the values may exceed 1e-4, none 2e-2 (one ulp of a depth in
+    [2, 4) is 1.6e-2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    scene = _scene("smooth", "f32", "persp", n=16, device="cuda")
-    scene = dataclasses.replace(scene, lights=tuple(
-        Light.create(direction=(0.1 * i, 0.3, -1.0), device="cuda")
-        for i in range(5)))
-    cfg = api.RenderConfig(width=32, height=24, sampling_rate=16.0,
-                           shading="diffuse", method="auto").resolved(scene)
-    before = swslice.LAUNCHES
-    with pytest.raises(NotImplementedError, match="slice"):
-        api.render(scene, cfg)
-    assert swslice.LAUNCHES == before
+    frames = []
+    for device in ("cuda", "cpu"):
+        scene = _scene("smooth", "f32", "persp", n=32, device=device,
+                       n_lights=5 if what == "five_lights" else 0,
+                       n_points=int(what == "point_light"))
+        cfg = api.RenderConfig(width=48, height=40, sampling_rate=32.0,
+                               shading="diffuse", method="auto",
+                               sw_bf16=what == "sw_bf16").resolved(scene)
+        n0, b0 = swslice.LAUNCHES, swslice.LAUNCHES_BF16
+        with PlainCalls() as plain:
+            frames.append(api.render(scene, cfg))
+        on_card = device == "cuda"
+        assert swslice.LAUNCHES == n0 + on_card and plain.n == 0
+        assert swslice.LAUNCHES_BF16 == b0 + (on_card and what == "sw_bf16")
+    card, cpu = frames
+    d = np.concatenate([np.abs(getattr(card, k).cpu().numpy()
+                               - getattr(cpu, k).numpy()).ravel()
+                        for k in ("rgba", "grad", "depth")])
+    if what == "sw_bf16":
+        assert (d > 1e-4).mean() <= 0.025 and d.max() <= 2e-2
+    else:
+        assert d.max() <= 1e-4
 
 
 def _march_frame(kind, cam, shading, lattice, device, **kw):

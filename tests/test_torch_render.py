@@ -9,6 +9,12 @@ slice loop: the XLA path ("xla") and the Pallas kernel in interpret mode
 suite's kernel-vs-XLA parity), early termination 5e-4. The shadow
 lattice is built once by the JAX package outside jit (its swept
 builder) and handed to both renderers.
+
+More than 4 extra directional lights and point lights run, in JAX, only
+through its XLA loop; the port's one loop (the kernel's function) is
+held against it. `sw_bf16` frames are held against JAX's kernel forward
+(interpret mode) with its bf16 warp, and against its XLA loop, which
+rounds the classifier too (the difference is stated in the test).
 """
 
 import dataclasses
@@ -20,6 +26,7 @@ import torch
 
 from ovr_tpu import api as japi
 from ovr_tpu.core.scene import Camera as JCamera
+from ovr_tpu.core.scene import Light as JLight
 from ovr_tpu.core.scene import simple_scene as jsimple
 from ovr_tpu.render import accel as jaccel
 from ovr_tpu_torch import api
@@ -74,15 +81,20 @@ def _forced(cfg):
                                                            pallas=True))
 
 
-def render_both(js, ts, shading, kernel, macrocells=False, **kw):
+def render_both(js, ts, shading, kernel, macrocells=False, fd=None, **kw):
     """(JAX frame, port frame) for one config; `kernel` picks JAX's
-    slice-loop form."""
+    slice-loop form, `fd` (if not None) the shading gradient of both."""
     kw = dict(dict(width=48, height=40, sampling_rate=32.0), **kw)
     jc = japi.RenderConfig(shading=shading, method="shearwarp",
                            **kw).resolved(js)
     tc = api.RenderConfig(shading=shading, method="shearwarp",
                           **kw).resolved(ts)
     assert jc.sw.pallas is False
+    if fd is not None:
+        jc = dataclasses.replace(jc, sw=dataclasses.replace(jc.sw,
+                                                           fd_grad=fd))
+        tc = dataclasses.replace(tc, sw=dataclasses.replace(tc.sw,
+                                                           fd_grad=fd))
     if kernel:
         jc = _forced(jc)
     jkw, tkw = {}, {}
@@ -198,3 +210,170 @@ def test_persp_shearwarp_golden(kernel):
         return np.concatenate([x[..., :3] * x[..., 3:], x[..., 3:]], -1)
 
     np.testing.assert_allclose(premult(rgba), premult(golden), atol=2.5e-3)
+
+
+# ---------------------------------------------------------------------------
+# extra lights beyond the JAX kernel's 4 slots, and point lights
+# ---------------------------------------------------------------------------
+
+RIGS = {
+    # bench.py's BENCH_EXTRA_LIGHTS=6
+    "six": lambda: tuple(JLight.create(direction=(0.4 * i - 0.6, 0.3, -1.0),
+                                       intensity=0.5 + 0.1 * i)
+                         for i in range(6)),
+    "point": lambda: (JLight.create(position=(0.5, 1.8, 0.5), kind="point",
+                                    intensity=1.2),),
+    # tests/test_scene_features.py's rig: two directional, one point
+    "rig": lambda: (JLight.create(direction=(0.3, -0.2, -1.0),
+                                  intensity=0.7),
+                    JLight.create(direction=(-1.0, 0.4, 0.1), intensity=0.5)
+                    ) + RIGS["point"](),
+}
+
+
+def _lit_scenes(cam, rig, **kw):
+    js, _ = _scenes(cam, **kw)
+    js = dataclasses.replace(js, lights=RIGS[rig]())
+    return js, scene_from_arrays(arrays_from_scene(js), device="cpu")
+
+
+# (camera, shading, rig, FD gradient)
+LIGHT_CASES = [("persp", "diffuse", "six", None),
+               ("persp", "diffuse", "point", None),
+               ("ortho", "diffuse", "point", True),
+               ("ortho", "shadow", "rig", None),
+               ("x_neg", "diffuse", "rig", True),
+               ("oblique", "shadow", "six", None),
+               ("inside", "diffuse", "rig", None)]
+
+
+@pytest.mark.parametrize("cam,shading,rig,fd", LIGHT_CASES,
+                         ids=[f"{c}-{s}-{r}{'-fd' if f else ''}"
+                              for c, s, r, f in LIGHT_CASES])
+def test_light_rigs_match_jax(cam, shading, rig, fd):
+    """The port's loop with the light table against JAX's XLA loop (the
+    only loop that runs these rigs there), termination off."""
+    js, ts = _lit_scenes(cam, rig)
+    jf, tf, _ = render_both(js, ts, shading, kernel=False, fd=fd,
+                            sw_term=False)
+    assert_frames_close(jf, tf)
+    # the rig does shade: the frame without it differs
+    js0, ts0 = _scenes(cam)
+    _, tf0, _ = render_both(js0, ts0, shading, kernel=False, fd=fd,
+                            sw_term=False)
+    assert np.abs(tf.rgba.numpy() - tf0.rgba.numpy()).max() > 1e-2
+
+
+def test_light_rig_skip_and_termination_match_jax():
+    """Skipping and termination on a light rig: JAX's XLA loop does
+    neither, so the frame is held at 5e-4 (the termination bound)."""
+    alpha = np.linspace(0.5, 1.0, 16)
+    js, ts = _lit_scenes("persp", "rig", alpha=alpha)
+    jf, tf, _ = render_both(js, ts, "diffuse", kernel=False, macrocells=True,
+                            base_rate=8.0)
+    assert float(tf.rgba[..., 3].max()) > 0.999
+    assert_frames_close(jf, tf, rgba=5e-4, depth=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# sw_bf16
+# ---------------------------------------------------------------------------
+
+def test_bf16_warp_matches_jax():
+    """`warp_rows` and `warp_separable` with bf16 operands against the
+    JAX package's weight matmuls: the same bits but where an upper tap's
+    weight 1 - |p - i| and the port's fraction f differ in their last f32
+    bit at a bf16 tie (positions below 1)."""
+    from ovr_tpu.render import shearwarp as jsw
+    from ovr_tpu_torch.render import shearwarp as tsw
+    rng = np.random.default_rng(0)
+    img = rng.random((20, 28, 8), dtype=np.float32)
+    pos = (rng.random((20, 33), dtype=np.float32) * 30 - 1).astype(np.float32)
+    got = tsw.warp_rows(torch.from_numpy(img), torch.from_numpy(pos),
+                        bf16=True).numpy()
+    want = np.asarray(jsw.warp_rows(jnp.asarray(img), jnp.asarray(pos),
+                                    bf16=True))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    assert np.abs(got - tsw.warp_rows(torch.from_numpy(img),
+                                      torch.from_numpy(pos)).numpy()
+                  ).max() > 1e-3
+    rp = (rng.random(17, dtype=np.float32) * 22 - 1).astype(np.float32)
+    cp = (rng.random(31, dtype=np.float32) * 30 - 1).astype(np.float32)
+    got = tsw.warp_separable(torch.from_numpy(img), torch.from_numpy(rp),
+                             torch.from_numpy(cp), bf16=True).numpy()
+    want = np.asarray(jsw.warp_separable(jnp.asarray(img), jnp.asarray(rp),
+                                         jnp.asarray(cp), bf16=True))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def assert_bf16_frames_close(tf, jf):
+    """sw_bf16 frames against JAX's with its kernel forward. The warp
+    rounds its image to bf16 as well, so a slice-loop value that the two
+    loops round apart (tests/test_torch_swslice.py's assert_bf16_close)
+    reaches the screen as a whole bf16 ulp of the pixel: up to 3.9e-3
+    for a colour or opacity in [0.5, 1), 1.6e-2 for a depth in [2, 4);
+    and a normal turns further where a flipped tap sits in its gradient.
+    Measured on these scenes: at most 1.5% of the values beyond 2e-5,
+    rgba up to 6.9e-3, normals up to 1.63e-2 (a normal z of 0.12), depth
+    up to 1.59e-2. Held: 2.5% beyond 2e-5, rgba 8e-3 (two ulps near 1),
+    normals and depth 2e-2."""
+    a, b = _channels(tf), _channels(jf)
+    d = np.abs(a - b)
+    assert float((d > 2e-5).mean()) <= 0.025
+    assert float(d[[0, 1, 2, 7]].max()) <= 8e-3
+    assert float(d[3:7].max()) <= 2e-2
+
+
+# (camera, shading, grid edge): f32 grids of 32 rows are read as bf16
+BF16_RENDER_CASES = [("persp", "none", 24), ("persp", "diffuse", 32),
+                     ("ortho", "shadow", 24), ("rolled", "diffuse", 24),
+                     ("oblique", "none", 32), ("x_neg", "shadow", 32)]
+
+
+@pytest.mark.parametrize("cam,shading,n", BF16_RENDER_CASES)
+def test_bf16_render_matches_jax_kernel(cam, shading, n):
+    """`api.render` with sw_bf16 against JAX's with its kernel forced on
+    (interpret mode), which rounds as the port's loop does, and its bf16
+    warp."""
+    js, ts = _scenes(cam, n=n)
+    jf, tf, tc = render_both(js, ts, shading, kernel=True, sw_bf16=True,
+                             sw_term=False)
+    assert tc.sw.bf16
+    assert_bf16_frames_close(tf, jf)
+    assert float(tf.rgba[..., 3].max()) > 0.1
+    # bf16 operands change the frame
+    _, t32, _ = render_both(js, ts, shading, kernel=True, sw_term=False)
+    assert np.abs(tf.rgba.numpy() - t32.rgba.numpy()).max() > 1e-3
+
+
+def _channels(frame):
+    """A frame as (8, H, W): rgb, normals, depth, alpha (the slice loop's
+    channel order)."""
+    rgba, grad, depth = (np.asarray(x) for x in (frame.rgba, frame.grad,
+                                                 frame.depth))
+    return np.concatenate([np.moveaxis(rgba[..., :3], -1, 0),
+                           np.moveaxis(grad, -1, 0), depth[None],
+                           rgba[None, ..., 3]])
+
+
+@pytest.mark.parametrize("cam,shading", [("persp", "diffuse"),
+                                         ("ortho", "none"),
+                                         ("x_neg", "shadow")])
+def test_bf16_render_against_jax_xla_loop(cam, shading):
+    """Against JAX's XLA loop under sw_bf16, which also rounds the
+    classifier's two weights and its table to bf16 (`_classify_impl`):
+    an opacity near 1 rounded so changes 1 - a by much more than 2^-9
+    (0.999 becomes 0.99609375), and the change compounds along the ray.
+    JAX's own kernel differs from its XLA loop by the same amount as the
+    port does (measured on these scenes, both: rgba up to 4.60e-2, mean
+    up to 7.5e-4; normals up to 8.0e-3; depth up to 2.29e-2, mean up to
+    2.9e-3)."""
+    js, ts = _scenes(cam)
+    jf, tf, _ = render_both(js, ts, shading, kernel=False, sw_bf16=True,
+                            sw_term=False)
+    a, b = _channels(tf), _channels(jf)
+    d = np.abs(a - b)
+    rgba = d[[0, 1, 2, 7]]
+    assert float(rgba.max()) <= 5e-2 and float(rgba.mean()) <= 1e-3
+    assert float(d[3:6].max()) <= 1e-2
+    assert float(d[6].max()) <= 3e-2 and float(d[6].mean()) <= 4e-3

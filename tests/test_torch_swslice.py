@@ -4,10 +4,12 @@ JAX package's Pallas kernel.
 Inputs are captured from the port's own renderer (the arrays it hands
 `slice_composite`), then fed to both `slice_composite_plain` and
 `ovr_tpu.ops.swslice.slice_composite_pallas(..., interpret=True)` — the
-persistent kernel (K1) and the BlockSpec kernel (K2). Tolerances are the
-JAX suite's kernel-vs-XLA ones: rgba and normals 5e-5, depth 2e-4,
-early termination 5e-4. The CUDA kernel itself is held against the
-plain version by tests/test_torch_cuda.py, which runs only on a card.
+persistent kernel (K1) and the BlockSpec kernel (K2), each also in its
+`bf16=True` variant. Tolerances are the JAX suite's kernel-vs-XLA ones:
+rgba and normals 5e-5, depth 2e-4, early termination 5e-4; the bf16
+variant is held at 2e-5 (rgba and normals) and 2e-4 (depth). The CUDA
+kernel itself is held against the plain version by
+tests/test_torch_cuda.py, which runs only on a card.
 """
 
 import jax.numpy as jnp
@@ -41,7 +43,16 @@ def _jnp(t):
 
 
 def run_pallas(args, kw, persistent, term):
+    """The JAX kernel on the port's inputs. Its scalars carry up to 4
+    extra directional lights in slots S_EL0.. where the port passes a
+    light table."""
     grid_v, tab, sc, pg, qg, k0, n_slices = args
+    lights, n_extra = kw.get("lights"), 0
+    if kw["mode"] >= 1 and lights is not None:
+        n_extra = kw["n_dir"]
+        assert n_extra == lights.shape[0] <= 4  # the JAX kernel's slots
+        sc = sc.clone()
+        sc[jsw.S_EL0:jsw.S_EL0 + 4 * n_extra] = lights.reshape(-1)
     maj = kw.get("majorant_v")
     if kw.get("axial_flip"):  # the Pallas kernel takes traversal order
         grid_v = grid_v.flip(0)
@@ -49,9 +60,9 @@ def run_pallas(args, kw, persistent, term):
     out = jsw.slice_composite_pallas(
         _jnp(grid_v), _jnp(tab), _jnp(sc), _jnp(pg), _jnp(qg), _jnp(k0),
         n_slices, mode=kw["mode"], lgrid=_jnp(kw.get("lgrid")),
-        k0l=_jnp(kw.get("k0l")), interpret=True,
-        n_extra=kw.get("n_extra", 0),
-        majorant_v=_jnp(maj), term=term, fd=kw["fd"], persistent=persistent)
+        k0l=_jnp(kw.get("k0l")), interpret=True, n_extra=n_extra,
+        bf16=kw["bf16"], majorant_v=_jnp(maj), term=term, fd=kw["fd"],
+        persistent=persistent)
     return np.asarray(out)
 
 
@@ -76,7 +87,9 @@ def test_plain_matches_pallas(shading, fd, persistent, skip, dtype, cam,
     scene = _scene(kind, dtype, cam, n_lights=n_lights)
     args, kw = capture(scene, shading, fd=fd, skip=skip)
     assert kw["mode"] == {"none": 0, "diffuse": 1, "shadow": 2}[shading]
-    assert kw.get("n_extra", 0) == (n_lights if shading != "none" else 0)
+    lights = kw.get("lights")
+    assert (0 if lights is None else lights.shape[0]) == n_lights
+    assert kw.get("n_dir", 0) == n_lights
     assert (kw["majorant_v"] is not None) == skip
     assert kw["axial_flip"] == (cam == "back")
     out = run_plain(args, kw, term=False)
@@ -193,3 +206,112 @@ def test_requires_grad_gives_a_gradient():
     assert swslice.LAUNCHES == before
     assert grid.grad.shape == grid.shape
     assert torch.isfinite(grid.grad).all() and grid.grad.abs().max() > 0
+
+
+def assert_bf16_close(out, ref, frac=0.02, atol=2e-5, depth=2e-4,
+                      worst=4e-3):
+    """The bf16 variant against the JAX kernel's: every value within
+    `worst`, and all but `frac` of them within `atol` (rgba and normals)
+    or `depth`. Where the two loops reach a bf16 rounding tie by f32
+    arithmetic that differs in its last bit, they round it apart: the
+    JAX kernel on the CPU forms its f32 positions with fused
+    multiply-adds (XLA contracts x = e + q * lam so), the port with a
+    product and a sum. A row or column weight of a plane then differs by
+    one bf16 ulp (2^-9 of it), the sample by up to that share of its
+    neighbours' difference, and the change carries along the ray (the
+    transmittance) and, with the FD gradient, into the neighbours'
+    shading. On these scenes that touches at most 1.3% of the values
+    beyond 2e-5, by at most 1.8e-3 (99th percentile 2.6e-5); the cases
+    without such a tie agree within 1.2e-7."""
+    d = np.abs(out - ref)
+    vals = np.concatenate([d[0:6].ravel(), d[7].ravel()])
+    assert float(vals.max()) <= worst and float(d[6].max()) <= worst
+    assert float((vals > atol).mean()) <= frac
+    assert float((d[6] > depth).mean()) <= frac
+
+
+# (shading, fd, persistent, skip, dtype, camera, extra lights, grid edge):
+# f32 grids of 32 rows are read as bf16, of 24 rows as f32
+BF16_CASES = [
+    ("none", True, True, False, "f32", "persp", 0, 32),
+    ("none", True, False, True, "f32", "ortho", 0, 24),
+    ("diffuse", True, True, False, "u8", "back", 1, 32),
+    ("diffuse", False, False, True, "bf16", "ortho", 2, 48),
+    ("diffuse", False, True, False, "f32", "persp", 0, 24),
+    ("shadow", True, True, False, "bf16", "persp", 0, 32),
+    ("shadow", False, False, True, "f32", "back", 3, 24),
+    ("shadow", True, False, True, "u8", "ortho", 4, 48),
+]
+
+
+@pytest.mark.parametrize("shading,fd,persistent,skip,dtype,cam,n_lights,n",
+                         BF16_CASES)
+def test_plain_bf16_matches_pallas(shading, fd, persistent, skip, dtype, cam,
+                                   n_lights, n):
+    """The bf16 variant (sw_bf16) against the JAX kernels' `bf16=True`."""
+    kind = "sparse" if skip else "smooth"
+    scene = _scene(kind, dtype, cam, n=n, n_lights=n_lights)
+    args, kw = capture(scene, shading, fd=fd, skip=skip)
+    kw = dict(kw, bf16=True)
+    out = run_plain(args, kw, term=False)
+    ref = run_pallas(args, kw, persistent=persistent, term=False)
+    assert float(ref[7].max()) > 0.05
+    # bf16 operands do change the frame
+    assert np.abs(out - run_plain(args, dict(kw, bf16=False),
+                                  term=False)).max() > 1e-4
+    assert_bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("shading", ["none", "diffuse"])
+def test_bf16_termination_matches_pallas(shading):
+    """Termination in the bf16 variant: within 5e-4 of the JAX kernel's
+    and of the untruncated loop, as in f32."""
+    scene = _scene(n=24, opaque=True)
+    args, kw = capture(scene, shading, fd=True, base_rate=8.0)
+    kw = dict(kw, bf16=True)
+    out = run_plain(args, kw, term=True)
+    assert float(out[7].max()) > 0.999
+    assert_out_close(out, run_pallas(args, kw, persistent=True, term=True),
+                     rgb=5e-4, depth=5e-3)
+    assert_out_close(out, run_plain(args, kw, term=False), rgb=5e-4,
+                     depth=5e-3)
+
+
+@pytest.mark.parametrize("n", [32, 24])
+def test_bf16_reads_f32_grid_as_bf16_by_rows(n):
+    """Under bf16 an f32 grid whose view has a multiple of 16 rows is read
+    as bf16 (the JAX kernel's `_storage_plan`), one of 24 rows as f32."""
+    scene = _scene(n=n)
+    args, kw = capture(scene, "diffuse")
+    kw = dict(kw, bf16=True)
+    assert args[0].dtype == torch.float32 and args[0].shape[1] == n
+    out = run_plain(args, kw, term=False)
+    cast = run_plain((args[0].to(torch.bfloat16),) + args[1:], kw,
+                     term=False)
+    assert swslice._streamed(args[0], True).dtype == (
+        torch.bfloat16 if n % 16 == 0 else torch.float32)
+    assert swslice._streamed(args[0], False).dtype == torch.float32
+    if n % 16 == 0:
+        np.testing.assert_array_equal(out, cast)
+    else:
+        assert np.abs(out - cast).max() > 1e-4
+
+
+def test_light_table_orders_and_counts():
+    """The light table's rows shade in order: swapping two directional
+    rows changes nothing beyond rounding, a point light's row read as a
+    directional one changes the frame, and mode 0 ignores the table."""
+    scene = _scene(n=24, n_lights=2)
+    args, kw = capture(scene, "diffuse")
+    lights = kw["lights"]
+    assert kw["n_dir"] == 2 and lights.shape == (2, 4)
+    out = run_plain(args, kw, term=False)
+    swapped = run_plain(args, dict(kw, lights=lights.flip(0)), term=False)
+    np.testing.assert_allclose(swapped, out, atol=1e-6)
+    as_point = run_plain(args, dict(kw, n_dir=1), term=False)
+    assert np.abs(as_point - out).max() > 1e-3
+    args0, kw0 = capture(scene, "none")
+    assert kw0.get("lights") is None
+    np.testing.assert_array_equal(
+        run_plain(args0, dict(kw0, lights=lights, n_dir=2), term=False),
+        run_plain(args0, kw0, term=False))
