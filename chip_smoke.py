@@ -385,9 +385,32 @@ PARITY_CASES = [
 ]
 
 
-def parity(grids, cases=PARITY_CASES):
+# Kernel-vs-plain cases with a surface: the scene carries SPHERE, which
+# cuts the volume, so the renderer passes the kernel its exit map (modes
+# 0/1/2, the f32 function and its bf16 variant, a light table in one).
+EXIT_CASES = [
+    (64, "f32", "bench", "none", True, True, True, "persp", 160, 90,
+     (0, 0), False, "staged"),
+    (64, "bf16", "bench", "diffuse", True, True, False, "ortho", 240, 135,
+     (0, 0), False, "staged"),
+    (64, "u8", "opaque", "shadow", False, False, True, "back", 160, 90,
+     (0, 0), False, "staged"),
+    (256, "bf16", "bench", "diffuse", True, True, True, "persp", 480, 270,
+     (2, 1), False, "staged"),
+    (64, "f32", "bench", "none", True, True, True, "persp", 160, 90,
+     (0, 0), True, "staged"),
+    (64, "bf16", "bench", "diffuse", False, False, True, "persp", 240, 135,
+     (0, 0), True, "staged"),
+    (256, "f32", "bench", "shadow", True, True, True, "persp", 480, 270,
+     (0, 0), True, "staged"),
+]
+
+
+def parity(grids, cases=PARITY_CASES, surfaces=False):
     """Kernel vs plain on the card; returns the largest error seen over
-    all cases and over the bf16 variant's cases."""
+    all cases and over the bf16 variant's cases. `surfaces`: each scene
+    carries SPHERE, and the kernel must be given an exit map that clamps
+    some of its fan rays."""
     import torch
     from ovr_tpu_torch import api
     from ovr_tpu_torch.ops import swslice
@@ -398,6 +421,8 @@ def parity(grids, cases=PARITY_CASES):
          path) in cases:
         grid = grids[(n, dt, "sparse" if kind == "sparse" else "bench")]
         scene = make_scene(grid, kind, cam, nd, npt)
+        if surfaces:
+            scene = with_sphere(scene)
         cfg = api.RenderConfig(
             width=w, height=h, sampling_rate=float(n), shading=shading,
             method="shearwarp", base_rate=n / 4.0 if kind == "opaque" else 1.0,
@@ -408,7 +433,12 @@ def parity(grids, cases=PARITY_CASES):
                                      scene.tfn.value_range) if skip else None)
         args, kw = capture(scene, cfg, macrocells=mc)
         name = (f"{n}^3 {dt} {kind} {shading} {cam} {w}x{h}"
-                f"{' bf16' if bf16 else ''}")
+                f"{' bf16' if bf16 else ''}{' exit map' if surfaces else ''}")
+        ex = kw.get("exit_map")
+        clamped = 0 if ex is None else int((ex < 1e38).sum())
+        if surfaces != (clamped > 0):
+            raise SystemExit(f"{name}: the exit map clamps {clamped} fan "
+                             f"rays")
         n0, b0 = swslice.LAUNCHES, swslice.LAUNCHES_BF16
         out = swslice.slice_composite(*args, **kw)
         torch.cuda.synchronize()
@@ -431,7 +461,8 @@ def parity(grids, cases=PARITY_CASES):
             f"samples per pixel {'equal' if same else 'DIFFER'} "
             f"({int(cnt['pixel_samples'].sum())} samples); planes sampled "
             f"from staged windows {staged}, from the grid {direct} (must be "
-            f"{path}) {'ok' if ok and same and path_ok else 'FAIL'}")
+            f"{path}){f'; {clamped} fan rays clamped' if surfaces else ''} "
+            f"{'ok' if ok and same and path_ok else 'FAIL'}")
         if (not ok or not same or not path_ok or alpha_max < 0.05
                 or n_lt != (nd + npt if shading != "none" else 0)):
             raise SystemExit(f"kernel disagrees with the plain version, "
@@ -675,6 +706,8 @@ def band_check(label, r, args, kw, full):
     r0 = (hi // 2 - BAND_ROWS // 2) // swslice.BLOCK_ROWS * swslice.BLOCK_ROWS
     band = list(args)
     band[4] = args[4][r0:r0 + BAND_ROWS]
+    if kw.get("exit_map") is not None:
+        kw = dict(kw, exit_map=kw["exit_map"][r0:r0 + BAND_ROWS])
     out = swslice.slice_composite(*band, **kw)
     cnt, _ = counted(band, kw, out)
     cnt_p = counts(band)
@@ -1333,6 +1366,476 @@ def march_fallback(grid, mc, smi):
     return r
 
 
+# ---------------------------------------------------------------------------
+# surfaces, multi-volume scenes and sparse sampling
+# ---------------------------------------------------------------------------
+
+# the opaque UV sphere of the geometry headline: 64 x 32 segments (3968
+# triangles: the pole bands' degenerate triangles are left out)
+SPHERE = dict(n_lon=64, n_lat=32, center=(0.5, 0.5, 0.55), radius=0.3)
+GEO_FRAMES = 3  # timed frames per geometry headline (after one warm-up)
+ORACLE_P95 = 0.06  # tests/test_geometry.py:146, the march against shear-warp
+
+
+def uv_sphere(n_lon, n_lat, center, radius):
+    """(verts (V, 3), faces (F, 3), uvs (V, 2)) numpy arrays of a
+    latitude-longitude sphere, the seam's vertices doubled for the uvs."""
+    import numpy as np
+    th = np.linspace(0.0, np.pi, n_lat + 1)
+    ph = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    unit = np.stack([np.sin(t) * np.cos(p), np.cos(t),
+                     np.sin(t) * np.sin(p)], -1)
+    verts = (np.asarray(center) + radius * unit).reshape(-1, 3)
+    uvs = np.stack([p / (2.0 * np.pi), 1.0 - t / np.pi], -1).reshape(-1, 2)
+    w, faces = n_lon + 1, []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = i * w + j, i * w + j + 1
+            c, d = a + w, b + w
+            if i > 0:
+                faces.append((a, b, d))
+            if i < n_lat - 1:
+                faces.append((a, d, c))
+    return (verts.astype(np.float32), np.asarray(faces, np.int64),
+            uvs.astype(np.float32))
+
+
+def with_sphere(scene, verts=None):
+    """`scene` with SPHERE as its one surface (kd 0.9, ks 0.3, ns 20);
+    `verts` replaces its vertices (a leaf for their gradient)."""
+    from ovr_tpu_torch.core.scene import (GeometryInstance, Material,
+                                          TriangleMesh)
+    dev = scene.device
+    v, f, uv = uv_sphere(**SPHERE)
+    mesh = TriangleMesh.create(v if verts is None else verts, f, uvs=uv,
+                               device=dev)
+    mat = Material.create(kd=(0.9, 0.9, 0.9), ks=(0.3, 0.3, 0.3), ns=20.0,
+                          device=dev)
+    return dataclasses.replace(scene, geometries=(
+        GeometryInstance.create(mesh, mat, device=dev),))
+
+
+def with_iso(scene, value=0.5):
+    """`scene` with its volume's isosurface at `value` (normalized)."""
+    from ovr_tpu_torch.core.scene import GeometryInstance, Isosurface
+    dev = scene.device
+    return dataclasses.replace(scene, geometries=(GeometryInstance.create(
+        Isosurface.create(value, device=dev), device=dev),))
+
+
+def oracle_error(scene, mc, drop_exit_map=False):
+    """The slice kernel (shear-warp) against the march on `scene` at the
+    oracle probe (128x72, rate 256, diffuse): the 95th percentile, over
+    the surface's interior pixels, of the largest premultiplied-rgb
+    difference (tests/test_geometry.py:121-147's rule; the interior is
+    the surface's hit mask eroded by 3 pixels, as that test's frame
+    interior is the frame eroded by 3), and the PSNR over the frame.
+    `drop_exit_map` renders the shear-warp frame without the exit map:
+    volume behind the surface, which the rule must reject."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import geometry
+    from ovr_tpu_torch.render.camera import generate_rays, pixel_screen_coords
+    out = {}
+    orig = swslice.slice_composite
+
+    def no_map(*args, **kw):
+        return orig(*args, **dict(kw, exit_map=None))
+
+    for method in ("shearwarp", "march"):
+        cfg = march_cfg(scene, "diffuse", 128, 72, 256.0, method=method)
+        if drop_exit_map and method == "shearwarp":
+            swslice.slice_composite = no_map
+        try:
+            f = api.render(scene, cfg, macrocells=mc).rgba
+        finally:
+            swslice.slice_composite = orig
+        out[method] = f[..., :3] * f[..., 3:]
+    screen = pixel_screen_coords(128, 72, torch.float32,
+                                 scene.device).reshape(-1, 2)
+    org, d = generate_rays(scene.camera, screen, 128, 72)
+    hit = (geometry.render_geometries(scene, org, d, iso_steps=128)[1]
+           > 0).reshape(1, 1, 72, 128).float()
+    inner = (-F.max_pool2d(-hit, 7, stride=1, padding=3))[0, 0] > 0.5
+    inner[:3], inner[-3:], inner[:, :3], inner[:, -3:] = False, False, \
+        False, False
+    err = (out["march"] - out["shearwarp"]).abs().amax(-1)[inner]
+    mse = float(torch.mean((out["march"] - out["shearwarp"]) ** 2))
+    return (float(torch.quantile(err, 0.95)), int(inner.sum()),
+            10.0 * math.log10(1.0 / max(mse, 1e-12)))
+
+
+def geometry_headline(grid, smi):
+    """The headline volume with a surface, through method="auto" (the
+    slice kernel with the exit map), diffuse, 1920x1080, rate 1024,
+    macrocells and termination on: (a) SPHERE, (b) the isosurface at
+    0.5 (iso_steps 128). Per case: frame ms over GEO_FRAMES frames after
+    a warm-up, Mrays/s, the kernel alone on the frame's inputs and a
+    band of them against the plain version, the geometry's own ms and
+    peak memory, peak memory of the frame, and the oracle probe against
+    the march: the sphere within ORACLE_P95, and with the exit map
+    dropped, both cases beyond it. The isosurface is not held to
+    ORACLE_P95: the two paths hit its folds on different rays and its
+    one-voxel FD normals (on a bf16 volume) shade the hits apart, which
+    the JAX package does as much (tests/test_torch_geometry.py::
+    test_isosurface_march_gap_is_the_references); `geometry_parity`
+    holds it card against CPU instead. The launch counts are set to 0
+    just before the frames and read after."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import accel, geometry
+    base = make_scene(grid, "bench", "persp")
+    mc = accel.build_macrocells(grid, base.tfn.alpha, base.tfn.value_range)
+    results, launches = {}, 0
+    for label, scene in (("sphere", with_sphere(base)),
+                         ("isosurface", with_iso(base))):
+        cfg = headline_cfg(scene, "diffuse")
+        swslice.LAUNCHES = 0
+        with PlainCalls() as plain:
+            frame = api.render(scene, cfg, macrocells=mc)
+            torch.cuda.synchronize()
+            check_frame(f"geometry {label}", frame, 1920, 1080)
+            alpha_mean = float(frame.rgba[..., 3].mean())
+            del frame
+            torch.cuda.reset_peak_memory_stats()
+            frame_ms = cuda_ms(lambda: api.render(scene, cfg, macrocells=mc),
+                               GEO_FRAMES)
+            peak = torch.cuda.max_memory_allocated()
+        n = swslice.LAUNCHES
+        if (n, plain.n) != (1 + GEO_FRAMES, 0):
+            raise SystemExit(f"geometry {label}: {n} kernel launches and "
+                             f"{plain.n} plain calls for {1 + GEO_FRAMES} "
+                             f"frames")
+        launches += n
+        # the surfaces alone, on the frame's fan rays
+        seen = {}
+        orig = geometry.render_geometries
+
+        def spy(*args, **kw):
+            seen.update(args=args, kw=kw)
+            return orig(*args, **kw)
+
+        geometry.render_geometries = spy
+        try:
+            args, kw = capture(scene, cfg, macrocells=mc)
+        finally:
+            geometry.render_geometries = orig
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        geo_ms = cuda_ms(lambda: orig(*seen["args"], **seen["kw"]), 1)
+        geo_peak = torch.cuda.max_memory_allocated() - base_mem
+        ex = kw["exit_map"]
+        full = swslice.slice_composite(*args, **kw)
+        kernel_ms = cuda_ms(lambda: swslice.slice_composite(*args, **kw), 3)
+        r = dict(frame_ms=frame_ms, peak_bytes=peak, alpha_mean=alpha_mean,
+                 kernel_ms=kernel_ms, geometry_ms=geo_ms,
+                 geometry_peak_bytes=geo_peak,
+                 fan_rays_clamped=int((ex < 1e38).sum()),
+                 fan_rays=ex.numel(), launches=n)
+        band_check(f"{label} map", r, args, kw, full)
+        p95, n_in, psnr = oracle_error(with_sphere(base) if label == "sphere"
+                                       else with_iso(base), mc)
+        p95_bad, _, psnr_bad = oracle_error(
+            with_sphere(base) if label == "sphere" else with_iso(base), mc,
+            drop_exit_map=True)
+        ok = (p95 < ORACLE_P95 or label == "isosurface") and (
+            max(p95, ORACLE_P95) <= p95_bad)
+        r.update(oracle_p95=p95, oracle_pixels=n_in, oracle_psnr_db=psnr,
+                 unclamped_p95=p95_bad, unclamped_psnr_db=psnr_bad,
+                 mrays_s=1920 * 1080 / (frame_ms * 1e-3) / 1e6)
+        results[label] = r
+        log(f"geometry headline {label:10s} 1920x1080 1024^3 bf16 diffuse "
+            f"auto: frame {frame_ms:.2f} ms ({r['mrays_s']:.2f} Mrays/s), "
+            f"kernel {kernel_ms:.2f} ms with the exit map "
+            f"({r['fan_rays_clamped']} of {ex.numel()} fan rays clamped), "
+            f"geometry {geo_ms:.2f} ms (peak {geo_peak / 2**30:.2f} GiB "
+            f"above the {base_mem / 2**30:.2f} GiB held), frame peak "
+            f"{peak / 2**30:.2f} GiB, mean alpha {alpha_mean:.3f}; oracle "
+            f"128x72 rate 256 against the march: p95 {p95:.4f} over "
+            f"{n_in} interior pixels ("
+            f"{f'< {ORACLE_P95}' if label == 'sphere' else 'not gated'}), "
+            f"PSNR {psnr:.2f} dB; "
+            f"without the exit map p95 {p95_bad:.4f} (must be >= "
+            f"{ORACLE_P95} and the clamped p95), PSNR {psnr_bad:.2f} dB "
+            f"{'ok' if ok else 'FAIL'}; {smi}")
+        if not ok:
+            raise SystemExit(f"geometry {label}: the slice kernel with the "
+                             f"exit map disagrees with the march, or the "
+                             f"probe cannot tell the clamp")
+    return results, launches
+
+
+def geometry_parity(grids):
+    """Frames with SPHERE and with the isosurface at 0.5 (64^3 f32,
+    160x90, diffuse, auto: the kernel with the exit map, and the march),
+    card against CPU: rgba and normals within 1e-4, depth 5e-4."""
+    from ovr_tpu_torch import api
+    worst = 0.0
+    for label, add in (("sphere", with_sphere), ("isosurface", with_iso)):
+        for method in ("auto", "march"):
+            frames = []
+            for grid in (grids[(64, "f32", "bench")],
+                         grids[(64, "f32", "bench")].cpu()):
+                scene = add(make_scene(grid, "bench", "persp"))
+                cfg = api.RenderConfig(width=160, height=90,
+                                       sampling_rate=64.0, shading="diffuse",
+                                       method=method).resolved(scene)
+                with PlainCalls() as plain:
+                    frames.append(api.render(scene, cfg))
+                if grid.is_cuda and plain.n:
+                    raise SystemExit("geometry parity: a plain call on the "
+                                     "card")
+            e = [float((getattr(frames[0], k).cpu() - getattr(frames[1], k))
+                       .abs().max()) for k in ("rgba", "grad", "depth")]
+            worst = max(worst, *e)
+            ok = e[0] <= 1e-4 and e[1] <= 1e-4 and e[2] <= 5e-4
+            log(f"geometry parity 64^3 {label} {method}: card vs CPU rgba "
+                f"{e[0]:.2e} normals {e[1]:.2e} depth {e[2]:.2e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("geometry: the card disagrees with the CPU")
+    return worst
+
+
+def geometry_backward(grids):
+    """Gradients of a shear-warp frame with SPHERE (64^3 f32, 160x90,
+    none and diffuse): the grid's, the TF alpha's and the sphere's
+    vertices', card against CPU, within 1e-3 of the CPU's largest
+    element; one kernel launch per frame, no plain call on the card."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    worst = 0.0
+    v0 = uv_sphere(**SPHERE)[0]
+    for shading in ("none", "diffuse"):
+        grads = []
+        for grid in (grids[(64, "f32", "bench")],
+                     grids[(64, "f32", "bench")].cpu()):
+            verts = torch.tensor(v0, device=grid.device, requires_grad=True)
+            alpha = make_scene(grid, "bench", "persp").tfn.alpha.detach()
+            alpha.requires_grad_(True)
+            g = grid.detach().requires_grad_(True)
+            scene = with_sphere(make_scene(g, "bench", "persp"), verts)
+            scene = dataclasses.replace(scene, tfn=dataclasses.replace(
+                scene.tfn, alpha=alpha))
+            cfg = api.RenderConfig(width=160, height=90, sampling_rate=64.0,
+                                   shading=shading,
+                                   method="shearwarp").resolved(scene)
+            n0 = swslice.LAUNCHES
+            with PlainCalls() as plain:
+                frame = api.render(scene, cfg)
+                loss = (frame.rgba ** 2).mean() + (frame.grad ** 2).mean()
+                gr = torch.autograd.grad(loss, [g, alpha, verts])
+            if grid.is_cuda and (swslice.LAUNCHES - n0 != 1 or plain.n):
+                raise SystemExit("geometry backward: the frame did not "
+                                 "launch the kernel once")
+            grads.append([x.cpu() for x in gr])
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(*grads)]
+        worst = max([worst] + errs)
+        ok = max(errs) <= 1e-3 and all(float(b.abs().max()) > 0
+                                       for b in grads[1])
+        log(f"geometry backward 64^3 f32 sphere {shading}: card vs CPU "
+            f"gradient, normalised max error grid {errs[0]:.2e}, alpha "
+            f"{errs[1]:.2e}, vertices {errs[2]:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("geometry backward: the card's gradient "
+                             "disagrees with the CPU's")
+    return worst
+
+
+MV_CAMERA = dict(from_=(1.05, 0.5, -2.2), at=(1.05, 0.5, 0.5), fovy=45.0)
+
+
+def multivol_scene(grid, grid2):
+    """The multi-volume headline: `grid` in [0,1]^3 with the bench TF and
+    `grid2` in [1.1, 2.1] x [0,1] x [0,1] with a second TF."""
+    import numpy as np
+    from ovr_tpu_torch.core.scene import (Camera, StructuredVolume,
+                                          TransferFunction, VolumeInstance)
+    dev = grid.device
+    scene = make_scene(grid, "bench", "persp")
+    tfn2 = TransferFunction.create(
+        np.stack([np.linspace(0.2, 1.0, 16), np.linspace(1.0, 0.3, 16),
+                  np.full(16, 0.4)], -1),
+        np.linspace(0.0, 0.8, 16) ** 2, scene.tfn.value_range, device=dev)
+    inst = VolumeInstance.create(StructuredVolume.create(
+        grid2, world_lo=(1.1, 0.0, 0.0), world_hi=(2.1, 1.0, 1.0),
+        device=dev), tfn2)
+    return dataclasses.replace(scene, instances=(inst,),
+                               camera=Camera.create(**MV_CAMERA, device=dev))
+
+
+def multivol_headline(grid, smi):
+    """The 1024^3 bf16 volume and a 512^3 bf16 instance of the same field
+    through method="auto" at 1920x1080, rate 1024, none and diffuse: a
+    plan per volume (cfg.sw a 2-tuple), two kernel launches a frame,
+    frame ms (1 warm-up, 5 timed) and peak memory. Counts set to 0 just
+    before, read just after."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    grid2 = field(512, "bench", grid.device).to(torch.bfloat16)
+    scene = multivol_scene(grid, grid2)
+    results, launches = {}, 0
+    for shading in ("none", "diffuse"):
+        cfg = api.RenderConfig(width=1920, height=1080, sampling_rate=1024.0,
+                               shading=shading,
+                               method="auto").resolved(scene)
+        if not (isinstance(cfg.sw, tuple) and len(cfg.sw) == 2):
+            raise SystemExit("multi-volume: no pair of shear-warp plans")
+        swslice.LAUNCHES = 0
+        with PlainCalls() as plain:
+            frame = api.render(scene, cfg)
+            torch.cuda.synchronize()
+            check_frame(f"multi-volume {shading}", frame, 1920, 1080)
+            alpha_mean = float(frame.rgba[..., 3].mean())
+            del frame
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: api.render(scene, cfg), 5)
+            peak = torch.cuda.max_memory_allocated()
+        n = swslice.LAUNCHES
+        if (n, plain.n) != (2 * 6, 0):
+            raise SystemExit(f"multi-volume {shading}: {n} kernel launches "
+                             f"and {plain.n} plain calls for 6 frames")
+        launches += n
+        results[shading] = dict(frame_ms=ms, peak_bytes=peak, launches=n,
+                                alpha_mean=alpha_mean,
+                                mrays_s=1920 * 1080 / (ms * 1e-3) / 1e6)
+        log(f"multi-volume headline {shading:7s} 1920x1080 1024^3 + 512^3 "
+            f"bf16 rate 1024 auto: frame {ms:.2f} ms "
+            f"({results[shading]['mrays_s']:.2f} Mrays/s), 2 launches a "
+            f"frame, peak memory {peak / 2**30:.2f} GiB, mean alpha "
+            f"{alpha_mean:.3f}; {smi}")
+    del grid2, scene
+    return results, launches
+
+
+def multivol_parity(grids):
+    """The multi-volume frame (64^3 and a 32^3 instance, 160x90, none and
+    diffuse, auto: two plans) and the march over both volumes, card
+    against CPU: rgba and normals within 1e-4, depth 5e-4."""
+    import torch
+    from ovr_tpu_torch import api
+    worst = 0.0
+    g64 = grids[(64, "f32", "bench")]
+    g32 = field(32, "bench", g64.device)
+    for method, shading in (("auto", "none"), ("auto", "diffuse"),
+                            ("march", "diffuse")):
+        frames = []
+        for a, b in ((g64, g32), (g64.cpu(), g32.cpu())):
+            scene = multivol_scene(a, b)
+            cfg = api.RenderConfig(width=160, height=90, sampling_rate=64.0,
+                                   shading=shading,
+                                   method=method).resolved(scene)
+            if (method == "auto") != isinstance(cfg.sw, tuple):
+                raise SystemExit("multi-volume parity: wrong plan")
+            frames.append(api.render(scene, cfg))
+        e = [float((getattr(frames[0], k).cpu() - getattr(frames[1], k))
+                   .abs().max()) for k in ("rgba", "grad", "depth")]
+        worst = max(worst, *e)
+        ok = e[0] <= 1e-4 and e[1] <= 1e-4 and e[2] <= 5e-4
+        log(f"multi-volume parity 64^3 + 32^3 {method} {shading}: card vs "
+            f"CPU rgba {e[0]:.2e} normals {e[1]:.2e} depth {e[2]:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("multi-volume: the card disagrees with the CPU")
+    return worst
+
+
+def sparse_frames(scene, cfg):
+    """Two frames of a `Renderer` with sparse sampling on and the focus
+    (0.5, 0.5), 0.2, 0.1: (frames, their sample indices, ms each)."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.render import sparse
+    r = api.Renderer(scene, cfg)
+    r.set_sparse_sampling(True)
+    r.set_focus((0.5, 0.5), 0.2, 0.1)
+    frames, idx, ms = [], [], []
+    cuda = scene.device.type == "cuda"
+    for i in (1, 2):
+        if cuda:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+        r.render()
+        if cuda:
+            marks[1].record()
+            torch.cuda.synchronize()
+            ms.append(marks[0].elapsed_time(marks[1]))
+        frames.append(r._frame)
+        idx.append(sparse.select_samples(
+            None, cfg.width, cfg.height, r._focus, i,
+            cfg.width * cfg.height // 8))
+    return frames, idx, ms
+
+
+def check_sparse(label, frames, idx, width, height):
+    """The second frame is the first with the second's samples written:
+    outside them it keeps the first's pixels."""
+    import torch
+    keep = torch.ones(height * width, dtype=torch.bool,
+                      device=idx[1].device)
+    keep[idx[1]] = False
+    same = torch.equal(frames[1].rgba.reshape(-1, 4)[keep],
+                       frames[0].rgba.reshape(-1, 4)[keep])
+    new = float(frames[1].rgba.reshape(-1, 4)[idx[1], 3].max())
+    if not same or not new > 0 or len(idx[1]) != width * height // 8:
+        raise SystemExit(f"sparse {label}: the second frame is not the "
+                         f"first with its samples scattered in")
+
+
+def sparse_headline(grid, smi):
+    """Renderer with sparse sampling on the 1024^3 bf16 volume, 1920x1080,
+    method="march", fast_math, macrocells, diffuse, rate 1024: a budget
+    of W*H/8 = 259 200 rays a frame; two frames timed, the second
+    scattered into the first. Held against the CPU at 64^3 (160x90):
+    the same indices, rgba within 1e-4."""
+    import torch
+    from ovr_tpu_torch.render import integrator as ig
+    scene = make_scene(grid, "bench", "persp")
+    cfg = march_cfg(scene, "diffuse")
+    s0 = ig.STEPS
+    torch.cuda.reset_peak_memory_stats()
+    frames, idx, ms = sparse_frames(scene, cfg)
+    check_sparse("headline", frames, idx, 1920, 1080)
+    check_frame("sparse", frames[1], 1920, 1080, min_alpha=0.1)
+    res = dict(frame_ms=ms, rays=len(idx[1]), steps=ig.STEPS - s0,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               mrays_s=[len(idx[1]) / (t * 1e-3) / 1e6 for t in ms])
+    small = {}
+    for g in (field(64, "bench", grid.device),
+              field(64, "bench", grid.device).cpu()):
+        sc = make_scene(g, "bench", "persp")
+        small[g.device.type] = sparse_frames(sc, march_cfg(
+            sc, "diffuse", 160, 90, 64.0))
+    (fc, ic, _), (fh, ih, _) = small["cuda"], small["cpu"]
+    same_idx = all(torch.equal(a.cpu(), b) for a, b in zip(ic, ih))
+    err = max(float((a.rgba.cpu() - b.rgba).abs().max())
+              for a, b in zip(fc, fh))
+    check_sparse("64^3", fc, ic, 160, 90)
+    res.update(parity_64_same_indices=same_idx, parity_64_rgba_err=err)
+    ok = same_idx and err <= 1e-4
+    log(f"sparse headline 1920x1080 1024^3 bf16 march fast_math diffuse: "
+        f"{res['rays']} rays a frame, frames "
+        f"{', '.join(f'{t:.0f}' for t in ms)} ms "
+        f"({', '.join(f'{x:.3f}' for x in res['mrays_s'])} Mrays/s), "
+        f"{res['steps']} steps in the two, peak memory "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB; 64^3 160x90 card vs CPU: "
+        f"indices {'equal' if same_idx else 'DIFFER'}, rgba {err:.2e} "
+        f"{'ok' if ok else 'FAIL'}; {smi}")
+    if not ok:
+        raise SystemExit("sparse: the card disagrees with the CPU")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1374,6 +1877,11 @@ def main() -> int:
     log(f"parity: all cases agree, largest difference {worst:.2e}, of the "
         f"bf16 variant {worst_bf16:.2e} ({time.perf_counter() - t0:.0f} s "
         f"so far)")
+    worst_map, worst_map16 = parity(grids, EXIT_CASES, surfaces=True)
+    worst, worst_bf16 = max(worst, worst_map), max(worst_bf16, worst_map16)
+    log(f"parity with the exit map: all cases agree, largest difference "
+        f"{max(worst_map, worst_map16):.2e} ({time.perf_counter() - t0:.0f} "
+        f"s so far)")
 
     results, launches, res16, launches16, vs_f32 = main_path(
         grids[(1024, "bf16", "bench")], smi, regs)
@@ -1385,10 +1893,19 @@ def main() -> int:
     worst_bf16 = max([worst_bf16] + [r["band_err"] for r in res16.values()])
     log(f"main path: {launches} launches of the f32 function, {launches16} "
         f"of the bf16 variant ({time.perf_counter() - t0:.0f} s so far)")
+    geo, geo_launches = geometry_headline(grids[(1024, "bf16", "bench")], smi)
+    worst = max([worst] + [r["band_err"] for r in geo.values()])
+    mv, mv_launches = multivol_headline(grids[(1024, "bf16", "bench")], smi)
+    log(f"surfaces and multi-volume: {geo_launches} launches with the exit "
+        f"map, {mv_launches} in multi-volume frames "
+        f"({time.perf_counter() - t0:.0f} s so far)")
 
     bwd_worst = backward_parity(grids)
     log(f"backward parity: all cases agree, largest normalised difference "
         f"{bwd_worst:.2e} ({time.perf_counter() - t0:.0f} s so far)")
+    geo_par = geometry_parity(grids)
+    geo_bwd = geometry_backward(grids)
+    mv_par = multivol_parity(grids)
     big = grids[(1024, "bf16", "bench")]
     for key in [k for k in grids if k[0] != 1024]:
         del grids[key]
@@ -1407,6 +1924,7 @@ def main() -> int:
     oracle = march_oracle(scene, mc)
     fallback = march_fallback(big, mc, smi)
     log(f"march phase {time.perf_counter() - t_march:.0f} s")
+    sparse = sparse_headline(big, smi)
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"backward": {
         "shape": "1024^3 bf16, 1920x1080, 1024 planes, macrocells on; loss "
@@ -1419,6 +1937,21 @@ def main() -> int:
                  "fast_math, macrocells on (no kernel: plain PyTorch)",
         "parity_64": mpar, "headline": mhead, "launches": mlaunch,
         "oracle": oracle, "fallback": fallback, "card": smi}}))
+    print(json.dumps({"surfaces": {
+        "geometry": {
+            "shape": "1024^3 bf16, 1920x1080, rate 1024, auto, diffuse, "
+                     "macrocells and termination on; sphere 64x32 "
+                     "segments (3968 triangles) or isosurface 0.5",
+            "cases": geo, "launches": geo_launches,
+            "parity_64_max_err": geo_par,
+            "backward_64_max_norm_err": geo_bwd},
+        "multi_volume": {
+            "shape": "1024^3 + 512^3 bf16, 1920x1080, rate 1024, auto",
+            "modes": mv, "launches": mv_launches,
+            "parity_64_32_max_err": mv_par},
+        "sparse": dict(sparse, shape="1024^3 bf16, 1920x1080, rate 1024, "
+                       "march, fast_math, diffuse, W*H/8 rays"),
+        "card": smi}}))
     keys = ("kernel_ms", "frame_ms", "mrays_s", "bound_ms", "bound_by",
             "samples", "ops_per_sample", "share_of_bound", "band_plain_ms",
             "band_kernel_ms", "band_err", "peak_bytes", "registers",
@@ -1431,6 +1964,8 @@ def main() -> int:
         "replaces": "ovr_tpu/ops/swslice.py:660",
         "also_replaces": "ovr_tpu/ops/swslice.py:561",
         "launches": launches,
+        "launches_with_exit_map": geo_launches,
+        "launches_multi_volume": mv_launches,
         "max_abs_err": worst,
         "ms": head["kernel_ms"],
         "plain_ms": head["band_plain_ms"],

@@ -9,8 +9,12 @@
 march otherwise (`method="march"`, the default, and `"auto"`'s
 fallback). `Renderer` is the stateful facade with setters, `commit`,
 `render`, `swap` and `mapframe`; `accumulate` and `variance_of` keep
-progressive sums. Features that later slices of the port bring raise
-NotImplementedError naming their ROADMAP item ("Queue next").
+progressive sums. Scenes may carry surfaces (`geometries`: meshes and
+isosurfaces, which the volume composites over) and more volumes
+(`instances`, composited in depth order); `Renderer` also renders
+foveated sparse frames (`set_sparse_sampling`, `set_focus`). Features
+that later slices of the port bring raise NotImplementedError naming
+their ROADMAP item ("Queue next").
 """
 
 from __future__ import annotations
@@ -22,11 +26,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ovr_tpu_torch.core.sampling import safe_normalize
+from ovr_tpu_torch.core.sampling import safe_normalize, scalar
 from ovr_tpu_torch.core.scene import Camera, Scene, TransferFunction
 from ovr_tpu_torch.render import accel
 from ovr_tpu_torch.render import integrator as ig
-from ovr_tpu_torch.render import lightgrid, shearwarp
+from ovr_tpu_torch.render import (geometry, lightgrid, multivol, shearwarp,
+                                  sparse)
 from ovr_tpu_torch.render.camera import (blended_flow, camera_basis,
                                          generate_rays, pixel_screen_coords)
 
@@ -110,8 +115,22 @@ class RenderConfig:
                         and self.shading in (ig.SHADING_NONE,
                                              ig.SHADING_DIFFUSE,
                                              ig.SHADING_SHADOW))
-            sw = (shearwarp.resolve_static(scene, camera or scene.camera,
-                                           self) if eligible else None)
+            camera = camera or scene.camera
+            sw = None
+            if eligible and scene.instances:
+                # one plan per volume; the screen partials composite in
+                # depth order (`_sw_instances`). Placed instances, and
+                # shadows (a lattice per instance), march instead.
+                if (all(i.xfm is None for i in scene.instances)
+                        and self.shading in (ig.SHADING_NONE,
+                                             ig.SHADING_DIFFUSE)):
+                    plans = tuple(shearwarp.resolve_static(
+                        dataclasses.replace(scene, volume=v, tfn=t,
+                                            instances=()), camera, self)
+                        for v, t in _volumes(scene))
+                    sw = None if None in plans else plans
+            elif eligible:
+                sw = shearwarp.resolve_static(scene, camera, self)
             if sw is None and self.method == "shearwarp":
                 raise ValueError(
                     "shearwarp ineligible for this scene/camera/config "
@@ -231,6 +250,12 @@ def _inline_light_grid(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
         _march_cfg(cfg), _lattice_res(scene, cfg))
 
 
+def _volumes(scene: Scene):
+    """(volume, tfn) of the primary volume, then of each instance."""
+    return [(scene.volume, scene.tfn)] + [(i.volume, i.tfn)
+                                          for i in scene.instances]
+
+
 def _unsupported(scene: Scene, cfg: RenderConfig):
     """The first feature outside the port so far, or None."""
     if cfg.path_tracing:
@@ -238,12 +263,6 @@ def _unsupported(scene: Scene, cfg: RenderConfig):
                 f"(render/pathtracer.py)")
     if not hasattr(scene.volume, "grid"):
         return f"neural-field volumes arrive with {_LATER.format(7)} (neural/)"
-    if scene.geometries:
-        return (f"geometries arrive with {_LATER.format(4)} "
-                f"(render/geometry.py)")
-    if scene.instances:
-        return (f"volume instances arrive with {_LATER.format(4)} "
-                f"(render/multivol.py)")
     return None
 
 
@@ -329,9 +348,25 @@ def _render_march_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
 
     def ray_batch(sc, tj):
         org, direction = generate_rays(camera, sc, cfg.width, cfg.height)
-        color, grad, depth, alpha = march_fn(
-            org, direction, leaves, ctx, mcfg, step, occupancy=occupancy,
-            jitter=tj)
+        # the surfaces first; the volume composites over them
+        t_bg = None
+        if scene.geometries:
+            bg_rgb, bg_a, t_bg = geometry.render_geometries(
+                scene, org, direction, iso_steps=cfg.iso_steps,
+                chunk=cfg.geometry_chunk)
+        if scene.instances:
+            color, grad, depth, alpha = multivol.march_instances(
+                scene, org, direction, ctx, cfg, mcfg, step)
+        else:
+            color, grad, depth, alpha = march_fn(
+                org, direction, leaves, ctx, mcfg, step,
+                occupancy=occupancy, jitter=tj, t_cap=t_bg)
+        if scene.geometries:
+            tr = 1.0 - alpha
+            color = color + tr[..., None] * bg_rgb
+            depth = depth + tr * bg_a * torch.minimum(
+                t_bg, scalar(1e30, t_bg.dtype, t_bg.device))
+            alpha = alpha + tr * bg_a
         flow = (None if last_camera is None else blended_flow(
             camera, last_camera, cfg.width, cfg.height, org, direction,
             depth, alpha))
@@ -360,11 +395,31 @@ def _render_march_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
     return _frame(cfg, *acc)
 
 
+def _sw_instances(scene: Scene, cfg: RenderConfig, camera: Camera, off):
+    """A multi-volume shear-warp frame (`cfg.sw` a tuple of plans, one
+    per volume): each volume through its own plan (one slice-kernel
+    launch each), then the premultiplied screen partials composited per
+    pixel in order of box-entry distance (`multivol.depth_composite`)."""
+    dev = scene.device
+    screen = pixel_screen_coords(cfg.width, cfg.height, cfg.dtype,
+                                 dev).reshape(-1, 2)
+    org, direction = generate_rays(camera, screen, cfg.width, cfg.height)
+    parts = []
+    for (vol, tfn), plan in zip(_volumes(scene), cfg.sw):
+        sv = dataclasses.replace(scene, volume=vol, tfn=tfn, instances=())
+        out = shearwarp.render_shearwarp(
+            sv, dataclasses.replace(cfg, sw=plan), camera, jitter=off)
+        parts.append((*out, multivol.entry_distance(
+            org, direction, vol.world_lo, vol.world_hi)))
+    return multivol.depth_composite(parts)
+
+
 def _render_shearwarp_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
                             generator, last_camera, light_grid=None,
                             macrocells=None) -> Frame:
     """Shear-warp frame; spp > 1 stratifies the sample-plane offset,
-    `jitter_rays` draws it at random."""
+    `jitter_rays` draws it at random. A tuple of plans renders the
+    scene's volumes one by one (`_sw_instances`)."""
     dev = scene.device
     acc = None
     for s in range(cfg.spp):
@@ -374,9 +429,12 @@ def _render_shearwarp_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
             off = (torch.tensor(float(s), dtype=cfg.dtype) + 0.5) / cfg.spp
         else:
             off = None
-        out = shearwarp.render_shearwarp(scene, cfg, camera, jitter=off,
-                                         light_grid=light_grid,
-                                         macrocells=macrocells)
+        if isinstance(cfg.sw, tuple):
+            out = _sw_instances(scene, cfg, camera, off)
+        else:
+            out = shearwarp.render_shearwarp(scene, cfg, camera, jitter=off,
+                                             light_grid=light_grid,
+                                             macrocells=macrocells)
         acc = out if acc is None else tuple(a + o for a, o in zip(acc, out))
     if cfg.spp > 1:
         acc = tuple(a * (1.0 / cfg.spp) for a in acc)
@@ -440,17 +498,15 @@ def variance_of(accum: Optional[AccumState], frame_index) -> float:
     return float(torch.mean(var))
 
 
-_SPARSE = ("sparse sampling arrives with a later slice of the port "
-           "(ROADMAP Queue next item 4, render/sparse.py)")
-
-
 class Renderer:
     """Stateful facade: setters queue parameter changes, `commit()`
     resolves the config and builds the macrocells and the shadow lattice
     it needs (cached until the volume, TF or light changes), `render()`
     draws a frame (and accumulates, if enabled), `mapframe()` returns
-    numpy arrays. Path tracing and neural volumes raise at `render()`,
-    sparse sampling at its setters."""
+    numpy arrays. With sparse sampling on, `render()` marches a budget of
+    W*H/8 rays chosen around the focus (`render.sparse.render_sparse`)
+    and scatters them into the last frame. Path tracing and neural
+    volumes raise at `render()`."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig()):
         self.scene = scene
@@ -461,6 +517,8 @@ class Renderer:
         self._frame: Optional[Frame] = None
         self._macrocells: Optional[accel.MacrocellGrid] = None
         self._light_grid: Optional[torch.Tensor] = None
+        self._sparse = False
+        self._focus: Optional[sparse.FocusParams] = None
         self._accumulating = False
         self._dirty = True
         self.render_time = 0.0
@@ -549,11 +607,13 @@ class Renderer:
         self._reset()
 
     def set_sparse_sampling(self, enabled: bool) -> None:
-        if enabled:
-            raise NotImplementedError(_SPARSE)
+        self._sparse = bool(enabled)
+        self._reset(rejit=False)
 
     def set_focus(self, center, scale, base_noise) -> None:
-        raise NotImplementedError(_SPARSE)
+        self._focus = sparse.FocusParams.create(center, scale, base_noise,
+                                                device=self._device)
+        self._reset(rejit=False)
 
     # -- lifecycle --
     def _reset(self, rejit: bool = True) -> None:
@@ -582,10 +642,19 @@ class Renderer:
         self.commit()
         self._frame_index += 1
         t0 = time.perf_counter()
-        frame = render(self.scene, self._cfg, camera=self._camera,
-                       frame_index=self._frame_index,
-                       macrocells=self._macrocells,
-                       light_grid=self._light_grid)
+        if self._sparse and not self._cfg.path_tracing:
+            gen = torch.Generator(device=self._device)
+            gen.manual_seed(self._frame_index)
+            frame, _ = sparse.render_sparse(
+                self.scene, self._cfg, camera=self._camera,
+                focus=self._focus, frame_index=self._frame_index,
+                generator=gen, prev_frame=self._frame,
+                macrocells=self._macrocells)
+        else:
+            frame = render(self.scene, self._cfg, camera=self._camera,
+                           frame_index=self._frame_index,
+                           macrocells=self._macrocells,
+                           light_grid=self._light_grid)
         if self._accumulating:
             frame, self._accum = accumulate(frame, self._accum,
                                             self._frame_index)

@@ -2,10 +2,14 @@
 
 `arrays_from_scene` flattens any object with the attribute names of
 `ovr_tpu`'s Scene (`volume.grid`, `tfn.color`, `camera.from_`,
-`lights`, ...) through `np.asarray`, so a JAX scene crosses over without
-this module importing JAX. `scene_from_arrays` builds the port's Scene
-from such a dict. Keys are dotted attribute paths; extra lights are
-`lights.<i>.<field>`; `*.kind` entries hold strings.
+`lights`, `geometries`, `instances`, ...) through `np.asarray`, so a JAX
+scene crosses over without this module importing JAX.
+`scene_from_arrays` builds the port's Scene from such a dict. Keys are
+dotted attribute paths; extra lights are `lights.<i>.<field>`, geometry
+instances `geometries.<i>.{kind,xfm,material.<field>,geometry.<field>}`
+(a material without a texture has no `map_kd` key), volume instances
+`instances.<i>.{volume,tfn}.<field>` and, where placed, `.xfm`;
+`*.kind` entries hold strings.
 """
 
 from __future__ import annotations
@@ -13,22 +17,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ovr_tpu_torch.core.scene import (Camera, Light, Scene, StructuredVolume,
-                                      TransferFunction)
+from ovr_tpu_torch.core.scene import (Camera, GeometryInstance, Isosurface,
+                                      Light, Material, Scene,
+                                      StructuredVolume, TransferFunction,
+                                      TriangleMesh, VolumeInstance)
 
 _VOLUME = ("grid", "world_lo", "world_hi", "data_range")
 _TFN = ("color", "alpha", "value_range")
 _CAMERA = ("from_", "at", "up", "fovy", "height")
 _LIGHT = ("direction", "color", "ambient", "position", "intensity")
+_MATERIAL = ("kd", "ks", "ns", "d")
+_MESH = ("verts", "faces", "colors", "uvs")
+
+
+def _count(arrays: dict, prefix: str) -> int:
+    return len({k.split(".")[1] for k in arrays
+                if k.startswith(prefix + ".")})
 
 
 def arrays_from_scene(obj) -> dict:
     """Flatten a Scene-shaped object into {dotted name: np.ndarray}."""
-    out = {}
-    for f in _VOLUME:
-        out[f"volume.{f}"] = np.asarray(getattr(obj.volume, f))
-    for f in _TFN:
-        out[f"tfn.{f}"] = np.asarray(getattr(obj.tfn, f))
+    out = _volume_arrays(obj.volume, obj.tfn, "")
     for f in _CAMERA:
         out[f"camera.{f}"] = np.asarray(getattr(obj.camera, f))
     out["camera.kind"] = np.asarray(obj.camera.kind)
@@ -37,8 +46,31 @@ def arrays_from_scene(obj) -> dict:
         for f in _LIGHT:
             out[f"{prefix}.{f}"] = np.asarray(getattr(lt, f))
         out[f"{prefix}.kind"] = np.asarray(lt.kind)
+    for i, g in enumerate(obj.geometries):
+        pre = f"geometries.{i}"
+        out[f"{pre}.kind"] = np.asarray(g.kind)
+        out[f"{pre}.xfm"] = np.asarray(g.xfm)
+        for f in _MATERIAL:
+            out[f"{pre}.material.{f}"] = np.asarray(getattr(g.material, f))
+        if getattr(g.material, "map_kd", None) is not None:
+            out[f"{pre}.material.map_kd"] = np.asarray(g.material.map_kd)
+        fields = ("isovalues",) if g.kind == "isosurface" else _MESH
+        for f in fields:
+            out[f"{pre}.geometry.{f}"] = np.asarray(getattr(g.geometry, f))
+    for i, inst in enumerate(obj.instances):
+        out.update(_volume_arrays(inst.volume, inst.tfn, f"instances.{i}."))
+        if getattr(inst, "xfm", None) is not None:
+            out[f"instances.{i}.xfm"] = np.asarray(inst.xfm)
     out["volume_sampling_rate"] = np.asarray(obj.volume_sampling_rate)
     out["density_scale"] = np.asarray(obj.density_scale)
+    return out
+
+
+def _volume_arrays(volume, tfn, prefix: str) -> dict:
+    out = {f"{prefix}volume.{f}": np.asarray(getattr(volume, f))
+           for f in _VOLUME}
+    out.update({f"{prefix}tfn.{f}": np.asarray(getattr(tfn, f))
+                for f in _TFN})
     return out
 
 
@@ -56,21 +88,47 @@ def _light(arrays: dict, prefix: str, device) -> Light:
                         kind=str(arrays[f"{prefix}.kind"]), device=device)
 
 
+def _volume(arrays: dict, prefix: str, device):
+    volume = StructuredVolume(
+        grid=_tensor(arrays[f"{prefix}volume.grid"]).to(device),
+        **{f: torch.as_tensor(np.array(arrays[f"{prefix}volume.{f}"],
+                                         np.float32), device=device)
+           for f in _VOLUME[1:]})
+    tfn = TransferFunction.create(
+        *(arrays[f"{prefix}tfn.{f}"] for f in _TFN), device=device)
+    return volume, tfn
+
+
+def _geometry(arrays: dict, prefix: str, device) -> GeometryInstance:
+    mat = {f: arrays[f"{prefix}.material.{f}"] for f in _MATERIAL}
+    material = Material.create(
+        **mat, map_kd=arrays.get(f"{prefix}.material.map_kd"), device=device)
+    if str(arrays[f"{prefix}.kind"]) == "isosurface":
+        geom = Isosurface.create(arrays[f"{prefix}.geometry.isovalues"],
+                                 device=device)
+    else:
+        geom = TriangleMesh.create(
+            **{f: arrays[f"{prefix}.geometry.{f}"] for f in _MESH},
+            device=device)
+    return GeometryInstance.create(geom, material,
+                                   xfm=arrays[f"{prefix}.xfm"], device=device)
+
+
 def scene_from_arrays(arrays: dict, device="cuda") -> Scene:
     """Build the port's Scene from `arrays_from_scene`'s dict."""
-    volume = StructuredVolume(
-        grid=_tensor(arrays["volume.grid"]).to(device),
-        **{f: torch.as_tensor(np.asarray(arrays[f"volume.{f}"], np.float32),
-                              device=device) for f in _VOLUME[1:]})
-    tfn = TransferFunction.create(arrays["tfn.color"], arrays["tfn.alpha"],
-                                  arrays["tfn.value_range"], device=device)
+    volume, tfn = _volume(arrays, "", device)
     camera = Camera.create(**{f: arrays[f"camera.{f}"] for f in _CAMERA},
                            kind=str(arrays["camera.kind"]), device=device)
-    n_extra = len({k.split(".")[1] for k in arrays
-                   if k.startswith("lights.")})
     lights = tuple(_light(arrays, f"lights.{i}", device)
-                   for i in range(n_extra))
+                   for i in range(_count(arrays, "lights")))
+    geometries = tuple(_geometry(arrays, f"geometries.{i}", device)
+                       for i in range(_count(arrays, "geometries")))
+    instances = tuple(
+        VolumeInstance.create(*_volume(arrays, f"instances.{i}.", device),
+                              xfm=arrays.get(f"instances.{i}.xfm"))
+        for i in range(_count(arrays, "instances")))
     return Scene.create(volume, tfn, light=_light(arrays, "light", device),
                         camera=camera,
                         volume_sampling_rate=arrays["volume_sampling_rate"],
-                        density_scale=arrays["density_scale"], lights=lights)
+                        density_scale=arrays["density_scale"], lights=lights,
+                        geometries=geometries, instances=instances)

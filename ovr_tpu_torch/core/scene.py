@@ -25,7 +25,7 @@ _NATIVE_INT = (torch.uint8, torch.uint16)
 def _f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return torch.as_tensor(np.array(x, np.float32), device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +115,93 @@ class StructuredVolume:
 
 
 @dataclasses.dataclass(frozen=True)
+class Material:
+    """OBJ-style surface material: `kd` diffuse RGB, `ks` specular RGB,
+    `ns` shininess, `d` opacity; `map_kd` an optional (H, W, 3) diffuse
+    texture sampled at the mesh's per-vertex UVs (None: untextured)."""
+
+    kd: torch.Tensor  # (3,)
+    ks: torch.Tensor  # (3,)
+    ns: torch.Tensor  # ()
+    d: torch.Tensor  # ()
+    map_kd: Any = None  # (H, W, 3) or None
+
+    @staticmethod
+    def create(kd=(0.8, 0.8, 0.8), ks=(0.0, 0.0, 0.0), ns=10.0, d=1.0,
+               map_kd=None, device="cuda") -> "Material":
+        return Material(kd=_f32(kd, device), ks=_f32(ks, device),
+                        ns=_f32(ns, device), d=_f32(d, device),
+                        map_kd=None if map_kd is None
+                        else _f32(map_kd, device))
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangleMesh:
+    """Indexed triangle mesh: verts (V, 3), faces (F, 3) int64, per-vertex
+    colors (V, 3) (ones: the material's kd alone) and uvs (V, 2) (zeros:
+    no texture coordinates)."""
+
+    verts: torch.Tensor
+    faces: torch.Tensor
+    colors: torch.Tensor
+    uvs: torch.Tensor
+
+    @staticmethod
+    def create(verts, faces, colors=None, uvs=None,
+               device="cuda") -> "TriangleMesh":
+        verts = _f32(verts, device)
+        colors = (torch.ones_like(verts) if colors is None
+                  else _f32(colors, device))
+        if uvs is None:
+            uvs = torch.zeros((verts.shape[0], 2), device=device)
+        uvs = _f32(uvs, device)
+        faces = (faces.to(device=device, dtype=torch.int64)
+                 if isinstance(faces, torch.Tensor) else torch.as_tensor(
+                     np.asarray(faces, np.int64), device=device))
+        return TriangleMesh(verts=verts, faces=faces, colors=colors, uvs=uvs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Isosurface:
+    """Isosurfaces of the scene's volume at `isovalues` (K,), in
+    normalized TF coordinates [0, 1]."""
+
+    isovalues: torch.Tensor
+
+    @staticmethod
+    def create(isovalues, device="cuda") -> "Isosurface":
+        iso = _f32(isovalues, device)
+        return Isosurface(isovalues=iso.reshape(-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class GeometryInstance:
+    """A geometry and its material placed by `xfm`, a (3, 4) object-to-
+    world affine [R | t]: rays go world -> object for the intersection,
+    normals object -> world by R^-T. `kind` is "triangles" or
+    "isosurface"."""
+
+    geometry: Any  # TriangleMesh | Isosurface
+    material: Material
+    xfm: torch.Tensor  # (3, 4)
+    kind: str = "triangles"
+
+    @staticmethod
+    def create(geometry, material=None, xfm=None,
+               device="cuda") -> "GeometryInstance":
+        if material is None:
+            material = Material.create(device=device)
+        if xfm is None:
+            xfm = torch.cat([torch.eye(3, device=device),
+                             torch.zeros((3, 1), device=device)], dim=1)
+        xfm = _f32(xfm, device)
+        kind = ("isosurface" if isinstance(geometry, Isosurface)
+                else "triangles")
+        return GeometryInstance(geometry=geometry, material=material,
+                                xfm=xfm, kind=kind)
+
+
+@dataclasses.dataclass(frozen=True)
 class Light:
     """A scene light. `direction` points toward the light; `position` is
     used by point lights. The primary light shades with implicit
@@ -142,9 +229,9 @@ class Light:
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """One structured volume, its transfer function, the primary light,
-    extra lights and a default camera. `geometries` and `instances` are
-    accepted for field parity; the renderer raises on them until their
-    slice of the port lands."""
+    extra lights and a default camera; `geometries` (GeometryInstance)
+    are surfaces the volume composites over, `instances`
+    (VolumeInstance) more volumes beside the primary one."""
 
     volume: StructuredVolume
     tfn: TransferFunction
@@ -175,6 +262,25 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.volume.grid.device
+
+
+@dataclasses.dataclass(frozen=True)
+class VolumeInstance:
+    """A structured volume and its transfer function placed in the world.
+    `xfm`: an optional (3, 4) object-to-world affine [R | t] on top of
+    the volume's own box (None: axis-aligned). Rays go world -> object
+    with the direction left unnormalized, so t, step lengths and depth
+    stay in world units."""
+
+    volume: StructuredVolume
+    tfn: TransferFunction
+    xfm: Any = None  # (3, 4) or None
+
+    @staticmethod
+    def create(volume, tfn, xfm=None) -> "VolumeInstance":
+        if xfm is not None:
+            xfm = _f32(xfm, volume.grid.device)
+        return VolumeInstance(volume=volume, tfn=tfn, xfm=xfm)
 
 
 def simple_scene(grid, color=None, alpha=None, value_range=None,

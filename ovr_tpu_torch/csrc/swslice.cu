@@ -86,7 +86,13 @@
 // and columns) has majorant <= 1.19e-7, which makes its opacity exactly
 // zero. Modes >= 1 also compute the plane before each active one (its
 // samples feed the axial difference). The block stops when no ray in it
-// has T > 1e-4 with its box exit still ahead.
+// has T > 1e-4 with its exit still ahead.
+//
+// Surfaces. An optional per-pixel exit map (a surface hit in ray-parameter
+// units, 3.4e38 where there is none; the TPU kernels have no such input)
+// is read once per pixel before the plane loop: the ray's interval ends
+// at max(min(box exit, map), entry), as in the JAX package's XLA slice
+// loop, and its exit in the termination test is min(box exit, map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,6 +142,7 @@ struct Params {
   const float* maj;  // (ma, mr, mc) or null
   int ma, mr, mc;
   int flip;  // maj and grid are storage-ordered; traversal runs backward
+  const float* exit_map;  // (hi, wi) surface exits, or null
   int term;
   float* out;  // (8, hi, wi)
   int* block_planes;  // per-block count of composited planes, or null
@@ -575,6 +582,10 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
              sc[S_CEX2], l2, h2);
     l_in[u] = fmaxf(fmaxf(fmaxf(l1, l2), sc[S_CLA]), 0.0f);
     exit_t[u] = fminf(fminf(h1, h2), sc[S_CHA]);
+    if (P.exit_map != nullptr)
+      exit_t[u] = fminf(exit_t[u],
+                        P.exit_map[(long long)min(row, P.hi - 1) * P.wi
+                                   + min(col, P.wi - 1)]);
     l_out[u] = fmaxf(exit_t[u], l_in[u]);
     speed[u] = ortho ? 1.0f : sqrtf(p * p + q[u] * q[u] + 1.0f);
   }
@@ -984,7 +995,8 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
                        const int* k0l, int la, int lr, int lc,
                        const float* lights, int n_lights, int n_dir,
                        const float* maj, int ma, int mr, int mc, int flip,
-                       int mode, int fd, int bf16, int term, float* out,
+                       const float* exit_map, int mode, int fd, int bf16,
+                       int term, float* out,
                        int* block_planes, int* pixel_samples,
                        int* stage_counts, void* stream) {
   if (n_tab < 1 || n_tab > MAX_TAB || mode < 0 || mode > 2 || wi < 1
@@ -1005,8 +1017,9 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   Params P{grid, sa, sr, sc, na, nr, nc, tab, n_tab, scal, pg, wi, qg, hi,
            k0, n_slices, lgrid, k0l, la, lr, lc, lights, n_lights, n_dir,
-           maj, ma, mr, mc, flip, term, out, block_planes, pixel_samples,
-           stage_counts, g, n_slices / 32 + 2, fp_off, ring_off};
+           maj, ma, mr, mc, flip, exit_map, term, out, block_planes,
+           pixel_samples, stage_counts, g, n_slices / 32 + 2, fp_off,
+           ring_off};
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -27,8 +27,9 @@ Work avoidance, per CUDA block of BLOCK_ROWS x BLOCK_COLS fan pixels:
   macrocells with majorant <= MAJ_EPS classifies to zero opacity and is
   skipped (exact). Modes >= 1 also compute the plane before each active
   one, whose samples feed the axial difference;
-- the block stops once no ray in it has T > T_EPS with its box exit
-  still ahead of the plane.
+- the block stops once no ray in it has T > T_EPS with its exit still
+  ahead of the plane (the box exit, or a surface's where `exit_map`
+  clamps it).
 
 `slice_composite_plain` is the same function in PyTorch, block
 semantics included, so the kernel can be held against it at tight
@@ -40,7 +41,10 @@ extra-light slots (4 directional lights) became a light table of any
 length, `lights`, and two of them hold the plane's axial world
 coordinate, which point lights read. `axial_flip` lets the caller pass
 a storage-ordered volume (and majorant grid) that the schedule walks
-from its last plane.
+from its last plane. `exit_map` is an input the TPU kernels lack: each
+fan ray's exit clamped at the nearest surface, which the JAX package's
+XLA slice loop reads (`ovr_tpu/render/shearwarp.py:1048-1062`) and its
+Pallas kernels ignore.
 """
 
 from __future__ import annotations
@@ -140,7 +144,7 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
                     mode: int = 0, lgrid=None, k0l=None, lights=None,
                     n_dir: int = 0, majorant_v=None, term: bool = True,
                     fd: bool = True, bf16: bool = False,
-                    axial_flip: bool = False,
+                    axial_flip: bool = False, exit_map=None,
                     block_planes: Optional[torch.Tensor] = None,
                     pixel_samples: Optional[torch.Tensor] = None,
                     stage_counts: Optional[torch.Tensor] = None):
@@ -158,7 +162,11 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
     termination; fd selects the finite-difference gradient (modes 1/2);
     bf16 rounds the resampling operands as the JAX kernel's bf16 variant
     does (module note); axial_flip walks grid_v (and majorant_v) from
-    plane A-1 down.
+    plane A-1 down; exit_map (Hi, Wi) f32, each fan ray's exit from the
+    volume in ray-parameter units where something nearer than the clip
+    box's far side stops it (a surface; 3.4e38 elsewhere): the ray's
+    interval becomes [l_in, max(min(box exit, exit_map), l_in)], read
+    once per pixel before the plane loop (None: the clip box alone).
     `block_planes`, if given, is an int32 tensor of one entry per block
     (row-major over a ceil(Hi/BLOCK_ROWS) x ceil(Wi/BLOCK_COLS) grid)
     that receives the number of planes each block composited.
@@ -176,24 +184,29 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
     CPU tensors run `slice_composite_plain`.
 
     Differentiable in grid_v (floating point), rgba_tab, scalars, pg, qg,
-    lgrid and lights: when grad is enabled and any of them requires it,
-    the forward runs with termination off (`term` is ignored; skipping
-    stays on) and keeps only the inputs and the final transmittance; the
-    backward is the bounded-memory analytic adjoint (`ops.adjoint`),
-    which recomputes each plane in reverse through `plane_step`. Under
+    lgrid, lights and exit_map: when grad is enabled and any of them
+    requires it, the forward runs with termination off (`term` is
+    ignored; skipping stays on) and keeps only the inputs and the final
+    transmittance; the backward is the bounded-memory analytic adjoint
+    (`ops.adjoint`), which recomputes each plane in reverse through
+    `plane_step`. Under
     `bf16` the recompute rounds as the JAX package's backward does (its
     XLA slice loop's rounding, on the grid as given)."""
     _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
            k0l, lights, n_dir)
+    if exit_map is not None and tuple(exit_map.shape) != (qg.shape[0],
+                                                          pg.shape[0]):
+        raise ValueError("exit_map must be (Hi, Wi)")
     opts = dict(n_slices=n_slices, mode=mode, n_dir=n_dir, fd=fd, bf16=bf16,
                 axial_flip=axial_flip, block_planes=block_planes,
                 pixel_samples=pixel_samples, stage_counts=stage_counts)
-    diff = (grid_v, rgba_tab, scalars, pg, qg, lgrid, lights)
+    diff = (grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, exit_map)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in diff):
         return _SliceComposite.apply(*diff, k0, k0l, majorant_v, opts)
     return _run(grid_v, rgba_tab, scalars, pg, qg, k0, lgrid=lgrid, k0l=k0l,
-                lights=lights, majorant_v=majorant_v, term=term, **opts)
+                lights=lights, majorant_v=majorant_v, term=term,
+                exit_map=exit_map, **opts)
 
 
 def _run(grid_v, rgba_tab, scalars, pg, qg, k0, *, n_slices, stage_counts,
@@ -222,6 +235,7 @@ def _bind(lib):
             p, p, i, i, i,  # lattice, k0l, dims
             p, i, i,  # lights, rows, directional rows
             p, i, i, i, i,  # majorants, dims, flip
+            p,  # exit map
             i, i, i, i,  # mode, fd, bf16, term
             p, p, p, p, p]  # out, the three counts, stream
         f.restype = ctypes.c_int
@@ -286,14 +300,14 @@ def _check_int32(name, t, n):
 
 def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
                           *, mode, lgrid, k0l, lights, n_dir, majorant_v,
-                          term, fd, bf16, axial_flip, block_planes,
+                          term, fd, bf16, axial_flip, exit_map, block_planes,
                           pixel_samples, stage_counts):
     global LAUNCHES, LAUNCHES_BF16
     from ovr_tpu_torch.ops import cuda_build
 
     dev = grid_v.device
     for t in (rgba_tab, scalars, pg, qg, k0, lgrid, k0l, lights, majorant_v,
-              block_planes, pixel_samples, stage_counts):
+              exit_map, block_planes, pixel_samples, stage_counts):
         if t is not None and t.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
     if rgba_tab.shape[0] > MAX_TAB:
@@ -326,6 +340,8 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
     else:
         ma = mr = mcn = 0
         maj_p = None
+    ex = (None if exit_map is None
+          else exit_map.to(torch.float32).contiguous())
     _check_int32("block_planes", block_planes,
                  math.ceil(hi / BLOCK_ROWS) * math.ceil(wi / BLOCK_COLS))
     _check_int32("pixel_samples", pixel_samples, hi * wi)
@@ -343,6 +359,7 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
             lg_p, k0l_p, la, lr, lc,
             lt_p, n_lt, n_dir,
             maj_p, ma, mr, mcn, int(axial_flip),
+            None if ex is None else ex.data_ptr(),
             mode, int(fd), int(bf16), int(term),
             out.data_ptr(),
             *(None if t is None else t.data_ptr()
@@ -363,19 +380,19 @@ class _SliceComposite(torch.autograd.Function):
     `_shaded_loop` custom VJPs)."""
 
     @staticmethod
-    def forward(ctx, grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, k0,
-                k0l, majorant_v, opts):
+    def forward(ctx, grid_v, rgba_tab, scalars, pg, qg, lgrid, lights,
+                exit_map, k0, k0l, majorant_v, opts):
         # termination off: the adjoint rebuilds T_k from the final
         # transmittance by dividing out each plane's (1 - a_k), so a
         # truncated forward would corrupt every rebuilt T. Skipping is
         # exact (skipped planes have zero opacity) and stays on.
         out = _run(grid_v, rgba_tab, scalars, pg, qg, k0, lgrid=lgrid,
                    k0l=k0l, lights=lights, majorant_v=majorant_v,
-                   term=False, **opts)
+                   term=False, exit_map=exit_map, **opts)
         ctx.opts = {k: opts[k] for k in ("n_slices", "mode", "n_dir", "fd",
                                          "bf16", "axial_flip")}
         ctx.save_for_backward(grid_v, rgba_tab, scalars, pg, qg, lgrid,
-                              lights, k0, k0l, 1.0 - out[7])
+                              lights, exit_map, k0, k0l, 1.0 - out[7])
         return out
 
     @staticmethod
@@ -388,12 +405,15 @@ class _SliceComposite(torch.autograd.Function):
         return (*out, None, None, None, None)
 
 
-def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, k0, k0l,
-             t_final, cot, *, n_slices, mode, n_dir, fd, bf16, axial_flip):
-    """Cotangents of (grid_v, rgba_tab, scalars, pg, qg, lgrid, lights)
-    for the output cotangent `cot` (8, Hi, Wi): the adjoint sweep over
-    the planes of `_plane_params`, then the chain through `_setup` back
-    to the scalars and fan coordinates.
+def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, exit_map,
+             k0, k0l, t_final, cot, *, n_slices, mode, n_dir, fd, bf16,
+             axial_flip):
+    """Cotangents of (grid_v, rgba_tab, scalars, pg, qg, lgrid, lights,
+    exit_map) for the output cotangent `cot` (8, Hi, Wi): the adjoint
+    sweep over the planes of `_plane_params`, then the chain through
+    `_setup` back to the scalars, the fan coordinates and the exit map
+    (the planes are recomputed with the clamped interval, as the JAX
+    package's backward recomputes them).
 
     Under `bf16` the planes are recomputed as the JAX package's backward
     recomputes them (`_plane_fields`, `_shade_fields` and the unshaded
@@ -402,10 +422,12 @@ def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, k0, k0l,
     the classifier's weights and table rounded too (`_classify_impl`)."""
     f32 = torch.float32
     fd_on = mode >= 1 and fd
-    leaves = [t.requires_grad_(True) for t in (scalars, pg, qg)]
+    leaves = [t.requires_grad_(True) for t in (scalars, pg, qg)
+              + ((exit_map,) if exit_map is not None else ())]
     with torch.enable_grad():
         geo, ortho = _setup(leaves[0], grid_v.dtype, leaves[1], leaves[2],
-                            n_slices, mode, fd_on)
+                            n_slices, mode, fd_on,
+                            leaves[3] if exit_map is not None else None)
     del geo["exit"]
     params = dict(geo, grid=grid_v, tab=rgba_tab.to(f32),
                   kz=[min(_slabs(grid_v, k, axial_flip))
@@ -426,11 +448,11 @@ def _adjoint(grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, k0, k0l,
     g = adjoint_sweep(step, n_slices, params, t_final, cot[0:7], -cot[7])
     pairs = [(geo[k], g[k]) for k in geo
              if g[k] is not None and geo[k].requires_grad]
-    d_sc, d_pg, d_qg = torch.autograd.grad(
+    d_sc, d_pg, d_qg, *d_exit = torch.autograd.grad(
         [t for t, _ in pairs], leaves, [c for _, c in pairs],
         allow_unused=True)
     return (g["grid"], g["tab"], d_sc, d_pg, d_qg, g.get("lgrid"),
-            g.get("lights"))
+            g.get("lights"), d_exit[0] if d_exit else None)
 
 
 def _plane_params(grid_v, *, mode, fd_on, ortho, n_dir, axial_flip,
@@ -577,12 +599,14 @@ def _block_active(maj, S, pg, qg, k: int, lam, n_a, n_r, n_c, fd_on, ortho,
 
 
 def _setup(scalars, grid_dtype, pg, qg, n_slices: int, mode: int,
-           fd_on: bool):
+           fd_on: bool, exit_map=None):
     """The slice loop's plane-independent quantities, differentiable in
-    (scalars, pg, qg): the prepared scalars "sc", the fan coordinates
-    "pg" and "qg" (f32) and the rows "q_smp" that are sampled (with one
-    halo row at each end for the FD gradient), each fan pixel's clip-box
-    interval "lin"/"lout" and box exit "exit", its "speed" (|d| per unit
+    (scalars, pg, qg, exit_map): the prepared scalars "sc", the fan
+    coordinates "pg" and "qg" (f32) and the rows "q_smp" that are sampled
+    (with one halo row at each end for the FD gradient), each fan pixel's
+    interval "lin"/"lout" (the clip box's, its exit clamped by
+    `exit_map` as JAX's `render_shearwarp` clamps `l_out`) and its exit
+    "exit" (the termination test's), its "speed" (|d| per unit
     of the ray parameter), and per plane the ray parameter "lam", the
     axial texel fraction "fz", the axial world coordinate "zabs" and, in
     mode 2, the lattice's "fzl".
@@ -609,6 +633,12 @@ def _setup(scalars, grid_dtype, pg, qg, n_slices: int, mode: int,
                        min=0.0)
     exit_t = torch.minimum(torch.minimum(h1, h2), S[S_CHA])
     l_out = torch.maximum(exit_t, l_in)
+    if exit_map is not None:
+        # JAX's order of min and max: the same values as the kernel's
+        # max(min(exit, exit_map), l_in), and its cotangents at ties
+        ex = exit_map.to(f32)
+        l_out = torch.maximum(torch.minimum(l_out, ex), l_in)
+        exit_t = torch.minimum(exit_t, ex)
     speed = ones if ortho else torch.sqrt(p2 * p2 + q2 * q2 + 1.0)
 
     # the plane schedule
@@ -939,7 +969,8 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
                           k0l=None, lights=None, n_dir: int = 0,
                           majorant_v=None, term: bool = True, fd: bool = True,
                           bf16: bool = False, axial_flip: bool = False,
-                          block_planes=None, pixel_samples=None):
+                          exit_map=None, block_planes=None,
+                          pixel_samples=None):
     """The fused slice loop in PyTorch, arithmetic in the kernel's order
     and per-block skipping/termination as the kernel does them. Same
     arguments and result as `slice_composite` (without `stage_counts`)."""
@@ -955,7 +986,7 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
     nbr, nbc = -(-hi // BLOCK_ROWS), -(-wi // BLOCK_COLS)
     fd_on = mode >= 1 and fd
     geo, ortho = _setup(scalars, grid_v.dtype, pg, qg, n_slices, mode,
-                        fd_on)
+                        fd_on, exit_map)
     S = geo["sc"].unbind()
     tab = rgba_tab.to(f32)
     exit_t, lam_all = geo["exit"], geo["lam"]

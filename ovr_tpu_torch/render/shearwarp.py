@@ -10,9 +10,13 @@ emission-absorption integral with samples at plane centers.
 
 The slice loop is one call of `ops.swslice.slice_composite`: the CUDA
 kernel for a volume on the card, its plain PyTorch version for one on the
-CPU. The frame is differentiable: the slice loop's backward is the
-bounded-memory analytic adjoint, and the warp and the rest are plain
-tensor ops that autograd differentiates.
+CPU. Surfaces (`scene.geometries`) are intersected with the fan rays in
+closed form; the nearest opaque hit clamps each fan ray's interval
+through the slice loop's exit map, and the shaded surface composites
+behind the loop's output before the warp. The frame is differentiable:
+the slice loop's backward is the bounded-memory analytic adjoint, and
+the warp and the rest are plain tensor ops that autograd
+differentiates.
 
 The plan keeps the fields of `ovr_tpu`'s `SwStatic` that change results;
 the TPU's VMEM tiling fields have no counterpart here (README, "TPU knobs
@@ -27,9 +31,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ovr_tpu_torch.core.sampling import safe_normalize
+from ovr_tpu_torch.core.sampling import safe_normalize, scalar
 from ovr_tpu_torch.core.scene import ORTHOGRAPHIC
 from ovr_tpu_torch.ops import swslice
+from ovr_tpu_torch.render import geometry
 from ovr_tpu_torch.render.camera import camera_basis
 
 
@@ -316,6 +321,26 @@ def _extra_lights_fan(scene, w1, w2, axis, dt):
     return torch.stack(dirs + pts).to(dt), len(dirs)
 
 
+def _fan_rays(pg, qg, e, direction, axis, sign, ortho):
+    """The fan's rays in world space: origins and directions (Hi, Wi, 3)
+    in the fan's ray parameter (the directions unnormalized: axial
+    component `sign` in perspective), and each ray's speed (Hi, Wi),
+    |direction| per unit of the parameter."""
+    w1, w2 = _perp_axes(axis)
+    hi_i, wi_i = qg.shape[0], pg.shape[0]
+    pp = pg[None, :].expand(hi_i, wi_i)
+    qq = qg[:, None].expand(hi_i, wi_i)
+    comps = [None] * 3
+    comps[w1], comps[w2] = pp, qq
+    if ortho:
+        comps[axis] = e[axis].expand(hi_i, wi_i)
+        return (torch.stack(comps, -1), direction.expand(hi_i, wi_i, 3),
+                torch.ones_like(pp))
+    comps[axis] = torch.full_like(pp, float(sign))
+    return (e.expand(hi_i, wi_i, 3), torch.stack(comps, -1),
+            torch.sqrt(pp * pp + qq * qq + 1.0))
+
+
 # ---------------------------------------------------------------------------
 # the renderer
 # ---------------------------------------------------------------------------
@@ -330,7 +355,13 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     fraction of the plane spacing (default 0.5 = plane centers).
     `light_grid`: the shadow lattice (`api.build_light_grid`), used when
     cfg.shading == 'shadow'. `macrocells`: `accel.build_macrocells` of
-    the volume, for the fused kernel's empty-plane skipping."""
+    the volume, for the fused kernel's empty-plane skipping.
+
+    With `scene.geometries` the surfaces are rendered on the fan rays
+    (`geometry.render_geometries`); where one is opaque, its hit clamps
+    the ray's interval (the slice loop's `exit_map`), and it composites
+    behind the volume (premultiplied, its depth scaled by the ray's
+    speed) before the warp, as the JAX package's XLA slice loop does."""
     sw: SwStatic = cfg.sw
     if sw is None:
         raise ValueError("cfg.sw unresolved; call cfg.resolved(scene)")
@@ -428,6 +459,16 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         glo1=lo[w1], gex1=ext[w1], glo2=lo[w2], gex2=ext[w2],
         za0=lo[axis] if sign > 0 else hi[axis], zsg=float(sign))
     zdt = torch.zeros((), **opts)
+    exit_map = bg = None
+    if scene.geometries:
+        ovec, dvec, speed = _fan_rays(pg, qg, e, direction, axis, sign,
+                                      ortho)
+        bg_rgb, bg_a, t_bg = geometry.render_geometries(
+            scene, ovec.reshape(-1, 3), dvec.reshape(-1, 3),
+            iso_steps=cfg.iso_steps, chunk=cfg.geometry_chunk)
+        bg = (bg_rgb.reshape(hi_i, wi_i, 3), bg_a.reshape(hi_i, wi_i),
+              t_bg.reshape(hi_i, wi_i), speed)
+        exit_map = torch.where(bg[1] > 0, bg[2], geometry.BIG)
     common = dict(
         lo1=lo1, ex1=ex1, lo2=lo2, ex2=ex2, e1=e[w1], e2=e[w2],
         dw1=direction[w1] if ortho else zdt,
@@ -440,7 +481,7 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         out8 = swslice.slice_composite(
             grid, rgba_tab, _kernel_scalars(dt, dev, **common), pg, qg, k0,
             n_loc, mode=0, majorant_v=maj_v, term=sw.term, fd=sw.fd_grad,
-            bf16=sw.bf16, axial_flip=sign < 0)
+            bf16=sw.bf16, axial_flip=sign < 0, exit_map=exit_map)
     else:
         # ---- shaded (diffuse/shadow) path ---------------------------------
         light_dir = safe_normalize(scene.light.direction)
@@ -467,10 +508,18 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         out8 = swslice.slice_composite(
             grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=mode, lgrid=lgrid,
             k0l=k0l, lights=lights, n_dir=n_dir, majorant_v=maj_v,
-            term=sw.term, fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0)
+            term=sw.term, fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0,
+            exit_map=exit_map)
     color = out8[0:3].permute(1, 2, 0)
     grad = out8[3:6].permute(1, 2, 0)
     depth, alpha = out8[6], out8[7]
+    if bg is not None:  # the surface behind the volume (premultiplied)
+        bg_rgb, bg_a, t_bg, speed = bg
+        tr = 1.0 - alpha
+        color = color + (tr * bg_a)[..., None] * bg_rgb
+        depth = depth + tr * bg_a * torch.minimum(
+            t_bg, scalar(1e30, t_bg.dtype, t_bg.device)) * speed
+        alpha = alpha + tr * bg_a
     return _sw_warp_out(color, grad, depth, alpha, cfg, sw, p_scr, q_scr,
                         p_lo, q_lo, dp, dq, pg, u, v, e, direction,
                         horizontal, vertical, axis, w1, w2, sign, ortho)

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MARCH_CASES, PlainCalls, field, march_scene
+from chip_smoke import (MARCH_CASES, PlainCalls, field, march_scene,
+                        multivol_scene, with_iso, with_sphere)
 from ovr_tpu_torch import api
 from ovr_tpu_torch.core.scene import Camera, Light, simple_scene
 from ovr_tpu_torch.ops import swslice
@@ -394,3 +395,76 @@ def test_march_while_raises_under_grad_on_card():
         api.render(scene, cfg)
     with torch.no_grad():
         assert api.render(scene, cfg).rgba.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shading,dtype,cam,bf16,lights", [
+    ("none", "f32", "persp", False, (0, 0)),
+    ("diffuse", "u8", "ortho", False, (2, 1)),
+    ("shadow", "bf16", "back", False, (0, 0)),
+    ("none", "f32", "persp", True, (0, 0)),
+    ("diffuse", "f32", "persp", True, (0, 0)),
+])
+def test_exit_map_matches_plain_on_card(shading, dtype, cam, bf16, lights):
+    """A surface that cuts the volume: the kernel reads the exit map and
+    gives the plain version's bits, with termination on and off, the
+    counting variant included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = with_sphere(_scene("smooth", dtype, cam, n=32, n_lights=lights[0],
+                               n_points=lights[1], device="cuda"))
+    args, kw = capture(scene, shading, skip=True, bf16=bf16)
+    assert int((kw["exit_map"] < 1e38).sum()) > 100
+    for term in (False, True):
+        before = swslice.LAUNCHES
+        out = swslice.slice_composite(*args, **dict(kw, term=term))
+        torch.cuda.synchronize()
+        assert swslice.LAUNCHES == before + 1
+        ref = swslice.slice_composite_plain(*args, **dict(kw, term=term))
+        assert torch.equal(out, ref)
+        got, want = _counts(args), _counts(args)
+        out_c = swslice.slice_composite(*args, **dict(kw, term=term, **got))
+        swslice.slice_composite_plain(*args, **dict(kw, term=term, **want))
+        assert torch.equal(out_c, out)
+        for k in got:
+            assert torch.equal(got[k], want[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["sphere", "isosurface", "sphere-march",
+                                  "instances", "instances-march"])
+def test_surfaces_and_instances_render_on_card(what):
+    """Frames with a surface (shear-warp through the kernel, or the march)
+    and with a second volume, on the card against the CPU: rgba and
+    normals 1e-4, depth 5e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    frames = []
+    for dev in ("cuda", "cpu"):
+        if what.startswith("instances"):
+            scene = multivol_scene(field(32, "bench", dev),
+                                   field(16, "bench", dev))
+        else:
+            base = _scene("smooth", "f32", "persp", n=32, device=dev)
+            scene = (with_iso(base) if what == "isosurface"
+                     else with_sphere(base))
+        cfg = api.RenderConfig(
+            width=64, height=48, sampling_rate=32.0, shading="diffuse",
+            method="march" if what.endswith("march") else "auto"
+        ).resolved(scene)
+        assert (cfg.sw is None) == what.endswith("march")
+        before = swslice.LAUNCHES
+        with PlainCalls() as plain:
+            frames.append(api.render(scene, cfg))
+        if dev == "cuda":
+            assert plain.n == 0
+            n_vol = 2 if what == "instances" else 1
+            assert swslice.LAUNCHES - before == (
+                0 if what.endswith("march") else n_vol)
+    a, b = frames
+    np.testing.assert_allclose(a.rgba.cpu().numpy(), b.rgba.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(a.depth.cpu().numpy(), b.depth.numpy(),
+                               atol=5e-4)
