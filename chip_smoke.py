@@ -65,10 +65,24 @@
    slice kernel against the march (128x72, rate 256): PSNR >= 35 dB;
    (d) renders the wide-FOV interior eye at 1080p through
    method="auto", which must fall back to the march;
-7. prints one JSON line each of backward, march and kernel
-   measurements (the kernel line with an entry for the f32 function and
-   one for its bf16 variant), then, last, the device line {"ok": true,
-   "device": {...}}.
+7. loads and path-traces scene files: writes bench.py's field at 1024^3
+   as a 1 GiB UNSIGNED_BYTE raw with a VIDI3D JSON and a USDA settings
+   file, loads both onto the card through `io.create_scene`, renders
+   them through `Renderer` (1080p, auto, diffuse; the slice kernel once
+   a frame) bit for bit against a directly built scene; holds both path
+   tracers card against CPU at 64^3 (MC with the global majorant and the
+   macrocell DDA from a CPU generator's draws; the dense solver's
+   fields, its gather on the card's own inputs, its frames, also under
+   sw_bf16); renders both at the 1024^3 bf16 1080p headline (dense:
+   `prepare` and frame ms; MC: frame ms, tracker iterations per level,
+   launches an iteration), checks the frames, and holds the dense frame
+   against the MC mean by tests/test_pathtracer.py's rule; no
+   path-traced frame may launch the slice kernel or run its plain
+   version;
+8. prints one JSON line each of backward, march, surfaces, scene-file
+   and path-tracing and kernel measurements (the kernel line with an
+   entry for the f32 function and one for its bf16 variant), then,
+   last, the device line {"ok": true, "device": {...}}.
 
 Exits non-zero without a CUDA device, without the repository beside it,
 or when any phase fails. Imports neither JAX nor the JAX package.
@@ -1836,6 +1850,530 @@ def sparse_headline(grid, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# scene files and path tracing
+# ---------------------------------------------------------------------------
+
+IO_FRAMES = 5  # timed Renderer frames of a loaded scene (after a warm-up)
+PT_DENSE_FRAMES = 5  # timed dense path-traced frames (after a warm-up)
+PT_MC_FRAMES = 2  # timed Monte-Carlo frames at 1080p
+# the bench.py camera in a VIDI3D file (world box [0, 1]^3 by "scales")
+BENCH_LIGHT = (-907.108, 2205.875, -400.0267)  # toward the light
+
+
+def scene_files(grid_u8, tmp):
+    """bench.py's field as an UNSIGNED_BYTE raw file with a VIDI3D JSON
+    (scales 1/n: the world box [0, 1]^3; the bench camera; a 256-entry
+    base64 alpha table (its ends above 0.01 or 0, which the reader's
+    end-bin cleanup keeps) and colour controls at the table's sample
+    positions, so both rasterize to the arrays given; a directional
+    light; sampleDistance 1/n) and a USDA settings file pointing at it
+    that restates the camera and light (USD's light direction points
+    away from the light). Returns (raw, json, usda paths, color, alpha)."""
+    import base64
+    import numpy as np
+    n = grid_u8.shape[0]
+    raw = os.path.join(tmp, "field.raw")
+    grid_u8.cpu().numpy().tofile(raw)
+    k = 256
+    alpha = np.linspace(0.0, 1.0, k, dtype=np.float32) ** 1.2
+    x = (np.arange(k) + 0.5) / k
+    color = np.stack([x, np.full(k, 0.5), 1.0 - x], -1).astype(np.float32)
+    cam = CAMERAS["persp"]
+    doc = {
+        "version": "VIDI3D",
+        "dataSource": [{
+            "format": "REGULAR_GRID_RAW_BINARY", "fileName": ["field.raw"],
+            "dimensions": {"x": n, "y": n, "z": n}, "type": "UNSIGNED_BYTE",
+            "offset": 0, "endian": "LITTLE_ENDIAN",
+            "scales": {"x": 1 / n, "y": 1 / n, "z": 1 / n}}],
+        "view": {
+            "camera": {"eye": dict(zip("xyz", cam["from_"])),
+                       "center": dict(zip("xyz", cam["at"])),
+                       "up": {"x": 0, "y": 1, "z": 0}, "fovy": cam["fovy"]},
+            "lightSource": {"type": "DIRECTIONAL_LIGHT",
+                            "position": dict(zip("xyz", BENCH_LIGHT)),
+                            "diffuse": {"r": 1, "g": 1, "b": 1}},
+            "volume": {
+                "sampleDistance": 1 / n,
+                "scalarMappingRange": {"minimum": 0.0, "maximum": 1.0},
+                "transferFunction": {
+                    "alphaArray": {"encoding": "BASE64", "data":
+                                   base64.b64encode(alpha.astype("<f4")
+                                                    .tobytes()).decode()},
+                    "colorControls": [
+                        {"position": float(p), "color": dict(zip(
+                            "rgb", (float(c) for c in rgb)))}
+                        for p, rgb in zip(x, color)]}}}}
+    js = os.path.join(tmp, "scene.json")
+    with open(js, "w") as f:
+        json.dump(doc, f)
+    usda = os.path.join(tmp, "scene.usda")
+    fmt = ", ".join
+    with open(usda, "w") as f:
+        f.write(f"""#usda 1.0
+def "scene" {{
+    def "rendering" {{
+        int use_dda = 1
+        bool simple_path_tracing = False
+    }}
+    def "volume" {{
+        string data_path = "scene.json"
+    }}
+    def "camera" {{
+        float3 from = ({fmt(str(v) for v in cam['from_'])})
+        float3 at = ({fmt(str(v) for v in cam['at'])})
+        float3 up = (0, 1, 0)
+    }}
+    def "light" {{
+        def "ambient" {{
+            def "sky" {{
+                float intensity = 1
+            }}
+        }}
+        def "directional" {{
+            def "sun" {{
+                float intensity = 1
+                float3 direction = ({fmt(str(-v) for v in BENCH_LIGHT)})
+                float3 color = (1, 1, 1)
+            }}
+        }}
+    }}
+}}
+""")
+    return raw, js, usda, color, alpha
+
+
+def scene_io(smi):
+    """Scene files on the card: bench.py's field at 1024^3 written as a
+    1 GiB UNSIGNED_BYTE raw with a VIDI3D JSON and a USDA settings file
+    (`scene_files`, in a temporary directory removed after), each loaded
+    through `io.create_scene(..., device="cuda")` (load time printed).
+    The grid must arrive as uint8 on the card, equal to `np.fromfile` of
+    the file. The JSON scene renders through `Renderer` at 1920x1080,
+    method="auto", diffuse, macrocells on: frame ms (IO_FRAMES after a
+    warm-up), Mrays/s, peak memory; the slice kernel launched once a
+    frame (counts set to 0 just before, read after), its plain version
+    never. The frame must equal, bit for bit, `api.render` of a scene
+    built directly from the same arrays, and the USDA scene's frame."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from ovr_tpu_torch import api, io
+    from ovr_tpu_torch.core.scene import (Camera, Light, Scene,
+                                          StructuredVolume, TransferFunction)
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import accel
+    n = 1024
+    g = field(n, "bench", "cuda")
+    grid = torch.clamp(torch.round(g * 255), 0, 255).to(torch.uint8)
+    del g
+    tmp = tempfile.mkdtemp(prefix="ovr_scene_")
+    try:
+        t0 = time.perf_counter()
+        raw, js, usda, color, alpha = scene_files(grid, tmp)
+        write_s = time.perf_counter() - t0
+        scenes, load_s = {}, {}
+        for label, path in (("vidi3d", js), ("usda", usda)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scenes[label] = io.create_scene(path, device="cuda")
+            torch.cuda.synchronize()
+            load_s[label] = time.perf_counter() - t0
+        on_disk = torch.from_numpy(np.fromfile(raw, np.uint8)).cuda()
+    finally:
+        shutil.rmtree(tmp)
+    for label, sc in scenes.items():
+        gl = sc.volume.grid
+        if not (gl.dtype == torch.uint8 and gl.is_cuda
+                and torch.equal(gl.reshape(-1), on_disk)):
+            raise SystemExit(f"scene io: the {label} grid is not the file's "
+                             f"bytes as uint8 on the card")
+    del on_disk
+    scene = scenes["vidi3d"]
+    rate = float(scene.volume_sampling_rate)
+    r = api.Renderer(scene, api.RenderConfig(
+        width=1920, height=1080, sampling_rate=rate, shading="diffuse",
+        method="auto", use_macrocells=True))
+    swslice.LAUNCHES = 0
+    with PlainCalls() as plain:
+        r.render()
+        torch.cuda.synchronize()
+        check_frame("scene io", r._frame, 1920, 1080)
+        torch.cuda.reset_peak_memory_stats()
+        frame_ms = cuda_ms(r.render, IO_FRAMES)
+        peak = torch.cuda.max_memory_allocated()
+    launches = swslice.LAUNCHES
+    if (launches, plain.n) != (1 + IO_FRAMES, 0) or r._cfg.sw is None:
+        raise SystemExit(f"scene io: {launches} kernel launches and "
+                         f"{plain.n} plain calls for {1 + IO_FRAMES} frames")
+    dev = grid.device
+    direct = Scene.create(
+        StructuredVolume.create(grid, world_hi=(1.0, 1.0, 1.0), device=dev),
+        TransferFunction.create(color, alpha, (0.0, 1.0), device=dev),
+        light=Light.create(direction=BENCH_LIGHT, position=BENCH_LIGHT,
+                           kind="directional", device=dev),
+        camera=Camera.create(**CAMERAS["persp"], device=dev),
+        volume_sampling_rate=rate)
+    mc = accel.build_macrocells(grid, direct.tfn.alpha,
+                                direct.tfn.value_range)
+    ref = api.render(direct, r._cfg, macrocells=mc)
+    ru = api.Renderer(scenes["usda"], r._cfg)
+    ru.render()
+    same = {k: all(torch.equal(getattr(f, c), getattr(ref, c))
+                   for c in ("rgba", "grad", "depth"))
+            for k, f in (("direct", r._frame), ("usda", ru._frame))}
+    res = dict(write_s=write_s, load_s=load_s, frame_ms=frame_ms,
+               mrays_s=1920 * 1080 / (frame_ms * 1e-3) / 1e6,
+               peak_bytes=peak, launches=launches,
+               bit_identical=same, axis=r._cfg.sw.axis,
+               alpha_mean=float(ref.rgba[..., 3].mean()))
+    log(f"scene io 1024^3 u8 (1 GiB raw): written in {write_s:.1f} s, "
+        f"loaded onto the card in {load_s['vidi3d']:.2f} s (VIDI3D JSON) "
+        f"and {load_s['usda']:.2f} s (USDA), uint8, equal to the file; "
+        f"Renderer 1920x1080 auto diffuse: frame {frame_ms:.2f} ms, "
+        f"{res['mrays_s']:.2f} Mrays/s, peak memory {peak / 2**30:.2f} GiB, "
+        f"{launches} kernel launches for {1 + IO_FRAMES} frames, no plain "
+        f"call; bit for bit against a directly built scene: "
+        f"{'yes' if same['direct'] else 'NO'}, the USDA scene's frame: "
+        f"{'yes' if same['usda'] else 'NO'}; {smi}")
+    if not all(same.values()):
+        raise SystemExit("scene io: a loaded scene renders other bits than "
+                         "the directly built one")
+    return res
+
+
+def pt_cfg(scene, width, height, rate, dense, **kw):
+    """bench.py's BENCH_PT config (mc: macrocell DDA; dense: auto with
+    the 128-lattice solver, 14 directions), max_scatters 24."""
+    from ovr_tpu_torch import api
+    kw = dict(dict(fast_math=True, use_macrocells=True, method="auto",
+                   max_scatters=24), **kw)
+    return api.RenderConfig(
+        width=width, height=height, spp=kw.pop("spp", 1), sampling_rate=rate,
+        shading="diffuse", path_tracing=True, pt_dense=dense,
+        **kw).resolved(scene)
+
+
+class NoSliceLoop:
+    """Inside the block, fail on any slice-kernel launch and count plain
+    slice-loop calls on the card (path-traced frames run neither)."""
+
+    def __enter__(self):
+        from ovr_tpu_torch.ops import swslice
+        self.n0, self.b0 = swslice.LAUNCHES, swslice.LAUNCHES_BF16
+        self.plain = PlainCalls().__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from ovr_tpu_torch.ops import swslice
+        self.plain.__exit__(*exc)
+        if exc[0] is None and (swslice.LAUNCHES != self.n0
+                               or swslice.LAUNCHES_BF16 != self.b0
+                               or self.plain.n):
+            raise SystemExit("a path-traced frame ran the slice loop")
+
+
+def bf16_frame_rule(a, b):
+    """The sw_bf16 rule for a dense frame rendered on two devices (a, b):
+    every rgba value within two bf16 ulps (2 * 2^-7) of the largest rgba
+    value, every depth within two bf16 ulps of the largest depth. The
+    two devices form the frame's positions (camera basis, plane
+    schedule, fan) an f32 ulp apart in places (CUDA divides a tensor by a
+    host scalar through its reciprocal; tanf, rsqrt); where a gather
+    operand's bf16 rounding sits at a tie, that ulp moves the rounded
+    operand by one bf16 ulp, and a pixel whose planes meet more than one
+    such tie moves by more than one. The arithmetic itself is held by
+    the gather on the card's own inputs (`capture_gather`). Returns
+    (ok, stats)."""
+    dr = float((a.rgba.cpu() - b.rgba).abs().max())
+    dd = float((a.depth.cpu() - b.depth).abs().max())
+    st = dict(rgba_max=dr, rgba_bound=2.0 ** -6 * float(b.rgba.abs().max()),
+              depth_max=dd,
+              depth_bound=2.0 ** -6 * float(b.depth.abs().max()))
+    return dr <= st["rgba_bound"] and dd <= st["depth_bound"], st
+
+
+def capture_gather(scene, cfg, fields):
+    """Render a dense frame; return it and the dense gather's `over_scan`
+    call (step function, steps, inputs)."""
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import adjoint
+    seen = {}
+    orig = adjoint.over_scan
+
+    def spy(f, n, params):
+        seen.update(f=f, n=n, params=params)
+        return orig(f, n, params)
+
+    adjoint.over_scan = spy
+    try:
+        frame = api.render(scene, cfg, pt_fields=fields)
+    finally:
+        adjoint.over_scan = orig
+    return frame, seen
+
+
+def pt_parity():
+    """Path tracing at 64^3 (bench field and scene, 96x64, rate 64), card
+    against CPU: the MC tracker with the global majorant and with the
+    macrocell DDA (spp 2, max_scatters 24, draws from a CPU generator of
+    the same seed on both, as api._rand does): rgba within 1e-4 but for
+    pixels whose path flips at an acceptance tie (at most 0.5%); the
+    dense solver (pt_lattice 32): sigma and J of `prepare` within 1e-4
+    of their largest element, the gather on the card's own inputs run on
+    the CPU within 1e-4 (f32 and sw_bf16), the frame within 1e-4 (rgba)
+    and 5e-4 (depth), under sw_bf16 within two bf16 ulps of the largest
+    value (`bf16_frame_rule`). No frame runs the slice loop."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import adjoint
+    from ovr_tpu_torch.render import accel, ptdense
+    out = {}
+    g = field(64, "bench", "cuda")
+    scenes = {g.device.type: make_scene(g, "bench", "persp"),
+              "cpu": make_scene(g.cpu(), "bench", "persp")}
+    mcs = {d: accel.build_macrocells(s.volume.grid, s.tfn.alpha,
+                                     s.tfn.value_range)
+           for d, s in scenes.items()}
+    with NoSliceLoop():
+        for label, dda in (("mc global", False), ("mc dda", True)):
+            frames = {}
+            for d, s in scenes.items():
+                cfg = pt_cfg(s, 96, 64, 64.0, False, spp=2,
+                             use_macrocells=dda)
+                frames[d] = api.render(s, cfg, macrocells=mcs[d],
+                                       generator=torch.Generator()
+                                       .manual_seed(7)).rgba
+            diff = (frames["cuda"].cpu() - frames["cpu"]).abs().amax(-1)
+            flips = int((diff > 1e-4).sum())
+            out[label] = dict(flipped_pixels=flips,
+                              flipped_share=flips / diff.numel(),
+                              max_abs=float(diff.max()),
+                              rgb_mean=float(frames["cpu"][..., :3].mean()))
+            log(f"pt parity 64^3 {label}: {flips} of {diff.numel()} pixels "
+                f"beyond 1e-4 (acceptance ties; largest {diff.max():.2e}), "
+                f"mean rgb {out[label]['rgb_mean']:.4f}")
+            if flips > 0.005 * diff.numel():
+                raise SystemExit(f"pt parity {label}: card and CPU differ")
+        fields = {}
+        for bf16 in (False, True):
+            res, cap = {}, None
+            for d, s in scenes.items():
+                cfg = pt_cfg(s, 96, 64, 64.0, True, pt_lattice=32,
+                             sw_bf16=bf16)
+                if cfg.sw is None:
+                    raise SystemExit("pt parity: no plan for the dense frame")
+                if d not in fields:
+                    fields[d] = ptdense.prepare(s, cfg)
+                res[d], seen = capture_gather(s, cfg, fields[d])
+                cap = cap or seen  # the card's, first
+            errs = {}
+            if not bf16:
+                for i, name in enumerate(("sigma", "J")):
+                    c, h = fields["cuda"][i].cpu(), fields["cpu"][i]
+                    errs[name] = float((c - h).abs().max() / h.abs().max())
+            host = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                    for k, v in cap["params"].items()}
+            vc, tc = adjoint.over_scan(cap["f"], cap["n"], cap["params"])
+            vh, th = adjoint.over_scan(cap["f"], cap["n"], host)
+            errs["gather_same_inputs"] = max(
+                float((vc.cpu() - vh).abs().max()),
+                float((tc.cpu() - th).abs().max()))
+            c, h = res["cuda"], res["cpu"]
+            if bf16:
+                ok, st = bf16_frame_rule(c, h)
+                errs.update(st)
+            else:
+                errs["rgba"] = float((c.rgba.cpu() - h.rgba).abs().max())
+                errs["depth"] = float((c.depth.cpu() - h.depth).abs().max())
+                ok = (errs["rgba"] <= 1e-4 and errs["depth"] <= 5e-4
+                      and errs["sigma"] <= 1e-4 and errs["J"] <= 1e-4)
+            ok = (ok and errs["gather_same_inputs"] <= 1e-4
+                  and float(h.rgba[..., 3].max()) > 0.3)
+            label = "dense bf16" if bf16 else "dense"
+            out[label] = errs
+            log(f"pt parity 64^3 {label} (lattice 32): "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"pt parity {label}: card and CPU differ")
+    return out
+
+
+def check_pt_frame(label, frame, scene, cfg, dense):
+    """tests/test_pathtracer.py's frame checks: finite, rgb <= ambient;
+    the MC alpha is 1 exactly on the rays that hit the box and 0
+    elsewhere; the dense alpha (the composite, anti-aliased by the warp)
+    in [0, 1], on the box's pixels 0.05 or more on average, off them
+    below 0.02."""
+    import torch
+    from ovr_tpu_torch.core.sampling import intersect_box
+    from ovr_tpu_torch.render.camera import generate_rays, pixel_screen_coords
+    rgba = frame.rgba
+    screen = pixel_screen_coords(cfg.width, cfg.height, cfg.dtype,
+                                 rgba.device).reshape(-1, 2)
+    org, d = generate_rays(scene.camera, screen, cfg.width, cfg.height)
+    t0 = torch.zeros(org.shape[0], device=org.device)
+    t0, t1 = intersect_box(org, d, scene.volume.world_lo,
+                           scene.volume.world_hi, t0,
+                           torch.full_like(t0, 3.4e38))
+    box = (t1 > torch.clamp(t0, min=0.0)).reshape(cfg.height, cfg.width)
+    a = rgba[..., 3]
+    amb = float(scene.light.ambient)
+    ok = (bool(torch.isfinite(rgba).all())
+          and float(rgba[..., :3].max()) <= amb + 1e-5
+          and float(rgba[..., :3].min()) >= 0.0)
+    if dense:
+        ok = ok and float(a.min()) >= 0.0 and float(a.max()) <= 1.0 \
+            and float(a[~box].mean()) < 0.02 and float(a[box].mean()) > 0.05
+    else:
+        ok = ok and bool(torch.equal(a, box.to(a.dtype)))
+    if not ok:
+        raise SystemExit(f"{label} frame failed its checks")
+    return float(a[box].mean())
+
+
+def pt_headline(grid, smi):
+    """Path tracing at the headline: the 1024^3 bf16 volume, 1920x1080,
+    the bench camera, through `api.render`. Dense (BENCH_PT=dense):
+    `prepare` timed once, then PT_DENSE_FRAMES frames after a warm-up
+    (CUDA events). MC (BENCH_PT=mc: macrocell DDA, spp 1): a warm-up at
+    240x135, then PT_MC_FRAMES timed frames at 1080p, with the tracker's
+    iterations per level. Each: ms, Mrays/s, peak memory, the frame
+    checks; no frame runs the slice loop."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.render import accel, pathtracer, ptdense
+    scene = make_scene(grid, "bench", "persp")
+    mc = accel.build_macrocells(grid, scene.tfn.alpha, scene.tfn.value_range)
+    res = {}
+    with NoSliceLoop():
+        cfg = pt_cfg(scene, 1920, 1080, 1024.0, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fields = ptdense.prepare(scene, cfg)
+        torch.cuda.synchronize()
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        prep_peak = torch.cuda.max_memory_allocated()
+        frame = api.render(scene, cfg, pt_fields=fields)
+        torch.cuda.synchronize()
+        alpha_box = check_pt_frame("pt dense", frame, scene, cfg, True)
+        del frame
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: api.render(scene, cfg, pt_fields=fields),
+                     PT_DENSE_FRAMES)
+        res["dense"] = dict(
+            prepare_ms=prep_ms, prepare_peak_bytes=prep_peak, frame_ms=ms,
+            mrays_s=1920 * 1080 / (ms * 1e-3) / 1e6,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            lattice=tuple(fields[0].shape), n_slices=cfg.sw.n_slices,
+            fan=(cfg.sw.inter_h, cfg.sw.inter_w), alpha_mean_box=alpha_box)
+        log(f"pt headline dense 1920x1080 1024^3 bf16 (lattice "
+            f"{fields[0].shape[0]}^3, 14 directions, 12 levels, "
+            f"{cfg.sw.n_slices} planes): prepare {prep_ms:.0f} ms (peak "
+            f"{prep_peak / 2**30:.2f} GiB), frame {ms:.1f} ms "
+            f"({PT_DENSE_FRAMES} after a warm-up), "
+            f"{res['dense']['mrays_s']:.2f} Mrays/s, peak memory "
+            f"{res['dense']['peak_bytes'] / 2**30:.2f} GiB; {smi}")
+        del fields
+        # the warm-up frame (240x135) under torch.profiler: launches
+        # per tracker iteration
+        small = pt_cfg(scene, 240, 135, 1024.0, False)
+        pathtracer.LEVEL_STEPS.clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            api.render(scene, small, macrocells=mc)
+            torch.cuda.synchronize()
+        small_iters = sum(pathtracer.LEVEL_STEPS)
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        cfg = pt_cfg(scene, 1920, 1080, 1024.0, False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, levels = [], []
+        for i in range(PT_MC_FRAMES):
+            pathtracer.LEVEL_STEPS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = api.render(scene, cfg, frame_index=i + 1, macrocells=mc)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            levels.append(list(pathtracer.LEVEL_STEPS))
+            alpha_box = check_pt_frame("pt mc", frame, scene, cfg, False)
+            rgb_mean = float(frame.rgba[..., :3].mean())
+            del frame
+        med = sorted(times)[len(times) // 2]
+        res["mc"] = dict(frame_ms=times, mrays_s=1920 * 1080 / (med * 1e-3)
+                         / 1e6, iterations_per_level=levels,
+                         max_track_steps=max(cfg.max_steps * 2, 64),
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         rgb_mean=rgb_mean, launches_240x135=launches,
+                         iterations_240x135=small_iters,
+                         launches_per_iteration=launches / max(small_iters,
+                                                               1))
+        log(f"pt headline mc 1920x1080 1024^3 bf16 (macrocell DDA, spp 1, "
+            f"max_scatters 24): frames {', '.join(f'{t:.0f}' for t in times)}"
+            f" ms, {res['mc']['mrays_s']:.3f} Mrays/s, tracker iterations "
+            f"per level {levels} (bound {res['mc']['max_track_steps']}), "
+            f"peak memory {res['mc']['peak_bytes'] / 2**30:.2f} GiB, mean "
+            f"rgb {rgb_mean:.4f}; the 240x135 warm-up: {launches} kernel "
+            f"launches in {small_iters} iterations "
+            f"({res['mc']['launches_per_iteration']:.1f} an iteration, the "
+            f"frame's setup included); {smi}")
+    return res
+
+
+def pt_dense_vs_mc():
+    """tests/test_pathtracer.py's dense-vs-MC rule on the card: the
+    smooth 64^3 field of that test with its TF and camera, 48x48, rate
+    64, MC spp 32 (global majorant), max_scatters 8 (5 levels), dense
+    with the default lattice (64^3 here): over the interior, mean
+    |premultiplied rgb difference| < 0.035 and energy within 20%."""
+    import numpy as np
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.core.scene import (Camera, Scene, StructuredVolume,
+                                          TransferFunction)
+    t0 = time.perf_counter()
+    ax = torch.linspace(0, 1, 64, device="cuda")
+    grid = (0.5 + 0.5 * torch.sin(5 * ax)[None, None, :]
+            * torch.cos(4 * ax)[None, :, None]
+            * torch.sin(3 * ax)[:, None, None])
+    tfn = TransferFunction.create(
+        np.stack([np.linspace(0.2, 1.0, 8), np.full(8, 0.6),
+                  np.linspace(1.0, 0.2, 8)], -1),
+        np.linspace(0, 1, 8) ** 1.5, (0.0, 1.0))
+    scene = Scene.create(StructuredVolume.create(grid), tfn,
+                         camera=Camera.create(from_=(0.5, 0.5, -1.8),
+                                              at=(0.5, 0.5, 0.5), fovy=40.0))
+    with NoSliceLoop():
+        cfg = pt_cfg(scene, 48, 48, 64.0, False, spp=32, max_scatters=8,
+                     use_macrocells=False)
+        mc = api.render(scene, cfg, frame_index=5).rgba.cpu().numpy()
+        cfg = pt_cfg(scene, 48, 48, 64.0, True, max_scatters=8)
+        de = api.render(scene, cfg).rgba.cpu().numpy()
+    mc_pm, de_pm = mc[..., :3] * mc[..., 3:], de[..., :3] * de[..., 3:]
+    inside = mc[..., 3] > 0.999
+    inside[:3] = inside[-3:] = False
+    inside[:, :3] = inside[:, -3:] = False
+    err = float(np.abs(de_pm - mc_pm)[inside].mean())
+    energy = float(de_pm[inside].sum() / mc_pm[inside].sum())
+    sec = time.perf_counter() - t0
+    ok = inside.sum() > 100 and err < 0.035 and abs(energy - 1.0) < 0.2
+    log(f"pt dense vs mc 64^3 48x48 (mc spp 32, max_scatters 8): mean "
+        f"|premultiplied rgb difference| {err:.4f} over {inside.sum()} "
+        f"interior pixels (< 0.035), dense/mc energy {energy:.4f} "
+        f"(within 20%), {sec:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the dense path tracer disagrees with the MC mean")
+    return dict(mean_abs_err=err, energy_ratio=energy, seconds=sec,
+                pixels=int(inside.sum()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1925,6 +2463,23 @@ def main() -> int:
     fallback = march_fallback(big, mc, smi)
     log(f"march phase {time.perf_counter() - t_march:.0f} s")
     sparse = sparse_headline(big, smi)
+
+    phase_s = {}
+    t_ph = time.perf_counter()
+    io_res = scene_io(smi)
+    phase_s["scene_io"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    pt_par = pt_parity()
+    phase_s["pt_parity_64"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    pt_head = pt_headline(big, smi)
+    phase_s["pt_headline"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    pt_dvm = pt_dense_vs_mc()
+    phase_s["pt_dense_vs_mc"] = time.perf_counter() - t_ph
+    log("scene io and path tracing phases: " + ", ".join(
+        f"{k} {v:.0f} s" for k, v in phase_s.items())
+        + f" ({time.perf_counter() - t0:.0f} s so far)")
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"backward": {
         "shape": "1024^3 bf16, 1920x1080, 1024 planes, macrocells on; loss "
@@ -1952,6 +2507,17 @@ def main() -> int:
         "sparse": dict(sparse, shape="1024^3 bf16, 1920x1080, rate 1024, "
                        "march, fast_math, diffuse, W*H/8 rays"),
         "card": smi}}))
+    print(json.dumps({"scene_io_path_tracing": {
+        "scene_io": dict(io_res, shape="1024^3 u8 VIDI3D / USDA files, "
+                         "Renderer 1920x1080, rate 1024, auto, diffuse, "
+                         "macrocells on"),
+        "pt_parity_64": pt_par,
+        "pt_headline": dict(pt_head, shape="1024^3 bf16, 1920x1080, "
+                            "max_scatters 24; dense: lattice 128, 14 "
+                            "directions, auto; mc: macrocell DDA, spp 1 "
+                            "(plain PyTorch, no kernel)"),
+        "pt_dense_vs_mc_64": pt_dvm, "phase_seconds": phase_s,
+        "card": smi}}, default=str))
     keys = ("kernel_ms", "frame_ms", "mrays_s", "bound_ms", "bound_by",
             "samples", "ops_per_sample", "share_of_bound", "band_plain_ms",
             "band_kernel_ms", "band_err", "peak_bytes", "registers",
@@ -1966,6 +2532,7 @@ def main() -> int:
         "launches": launches,
         "launches_with_exit_map": geo_launches,
         "launches_multi_volume": mv_launches,
+        "launches_scene_io": io_res["launches"],
         "max_abs_err": worst,
         "ms": head["kernel_ms"],
         "plain_ms": head["band_plain_ms"],

@@ -7,8 +7,12 @@
 `render` takes the shear-warp fast path where a plan resolves
 (`method="shearwarp"`, or `"auto"` on an eligible view) and the ray
 march otherwise (`method="march"`, the default, and `"auto"`'s
-fallback). `Renderer` is the stateful facade with setters, `commit`,
-`render`, `swap` and `mapframe`; `accumulate` and `variance_of` keep
+fallback). With `path_tracing` it renders the reference's second
+pipeline: the delta-tracking tracker (`render/pathtracer.py`) or, with
+`pt_dense` and a plan, the discrete-ordinates solver gathered through
+the shear-warp fan (`render/ptdense.py`). `Renderer` is the stateful
+facade with setters, `commit`, `render`, `swap` and `mapframe`;
+`accumulate` and `variance_of` keep
 progressive sums. Scenes may carry surfaces (`geometries`: meshes and
 isosurfaces, which the volume composites over) and more volumes
 (`instances`, composited in depth order); `Renderer` also renders
@@ -30,8 +34,8 @@ from ovr_tpu_torch.core.sampling import safe_normalize, scalar
 from ovr_tpu_torch.core.scene import Camera, Scene, TransferFunction
 from ovr_tpu_torch.render import accel
 from ovr_tpu_torch.render import integrator as ig
-from ovr_tpu_torch.render import (geometry, lightgrid, multivol, shearwarp,
-                                  sparse)
+from ovr_tpu_torch.render import (geometry, lightgrid, multivol, pathtracer,
+                                  ptdense, shearwarp, sparse)
 from ovr_tpu_torch.render.camera import (blended_flow, camera_basis,
                                          generate_rays, pixel_screen_coords)
 
@@ -45,8 +49,9 @@ class RenderConfig:
     kernel variants with identical results and change nothing here.
     `ovr_tpu`'s `sw_pallas` (the Pallas kernel or the XLA slice loop) has
     no counterpart: the slice loop is the kernel on the card and its plain
-    version on the CPU. `ray_chunk` stays None unless set (the JAX
-    package sets one only on a TPU).
+    version on the CPU. `ray_chunk` (march and MC tracker rays per
+    chunk) stays None unless set: the JAX package's 1 << 16 default on a
+    TPU, a bound on its working set there, does not carry over.
 
     `sw_bf16` rounds shear-warp's resampling operands to bfloat16 (to
     nearest even) and sums their products in f32, as the JAX kernel's
@@ -111,13 +116,18 @@ class RenderConfig:
             n = int(np.ceil(diag * self.sampling_rate / self.shadow_scale))
             updates["shadow_max_steps"] = n + 2
         if self.method in ("shearwarp", "auto"):
-            eligible = (not self.path_tracing
-                        and self.shading in (ig.SHADING_NONE,
-                                             ig.SHADING_DIFFUSE,
-                                             ig.SHADING_SHADOW))
+            pt_dense = self.path_tracing and self.pt_dense
+            eligible = (pt_dense
+                        or (not self.path_tracing
+                            and self.shading in (ig.SHADING_NONE,
+                                                 ig.SHADING_DIFFUSE,
+                                                 ig.SHADING_SHADOW)))
+            # the dense path tracer's gather is unshaded
+            view = (dataclasses.replace(self, shading=ig.SHADING_NONE)
+                    if pt_dense else self)
             camera = camera or scene.camera
             sw = None
-            if eligible and scene.instances:
+            if eligible and scene.instances and not pt_dense:
                 # one plan per volume; the screen partials composite in
                 # depth order (`_sw_instances`). Placed instances, and
                 # shadows (a lattice per instance), march instead.
@@ -130,7 +140,7 @@ class RenderConfig:
                         for v, t in _volumes(scene))
                     sw = None if None in plans else plans
             elif eligible:
-                sw = shearwarp.resolve_static(scene, camera, self)
+                sw = shearwarp.resolve_static(scene, camera, view)
             if sw is None and self.method == "shearwarp":
                 raise ValueError(
                     "shearwarp ineligible for this scene/camera/config "
@@ -258,9 +268,6 @@ def _volumes(scene: Scene):
 
 def _unsupported(scene: Scene, cfg: RenderConfig):
     """The first feature outside the port so far, or None."""
-    if cfg.path_tracing:
-        return (f"path tracing arrives with {_LATER.format(6)} "
-                f"(render/pathtracer.py)")
     if not hasattr(scene.volume, "grid"):
         return f"neural-field volumes arrive with {_LATER.format(7)} (neural/)"
     return None
@@ -270,17 +277,21 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
            frame_index: int = 0, generator: Optional[torch.Generator] = None,
            macrocells: Optional[accel.MacrocellGrid] = None,
            last_camera: Optional[Camera] = None,
-           light_grid: Optional[torch.Tensor] = None) -> Frame:
+           light_grid: Optional[torch.Tensor] = None,
+           pt_fields=None) -> Frame:
     """Render one frame, on the scene's device.
 
     `cfg` must be resolved (`cfg.resolved(scene)`); `cfg.sw` set means
     shear-warp, None the march. `generator`: the `torch.Generator` of the
-    spp screen jitter and `jitter_rays` (default: one on the scene's
-    device seeded with `frame_index`); a CPU generator for a scene on
-    the card draws on the CPU and copies, so that both devices render
-    the same jitter. `macrocells`: `accel.build_macrocells`
-    of the volume, for shear-warp's plane skipping and, with
-    `cfg.use_macrocells`, the march's empty-space skipping.
+    spp screen jitter, `jitter_rays` and the path tracer's draws
+    (default: one on the scene's device seeded with `frame_index`); a
+    CPU generator for a scene on the card draws on the CPU and copies,
+    so that both devices render the same jitter. `macrocells`:
+    `accel.build_macrocells` of the volume, for shear-warp's plane
+    skipping and, with `cfg.use_macrocells`, the march's empty-space
+    skipping and the path tracer's DDA tracking.
+    `pt_fields`: `ptdense.prepare`'s (sigma, J) for a dense path-traced
+    frame (built here when none is given).
     `last_camera`: fills `Frame.flow`. `light_grid`: the shadow lattice
     (`build_light_grid`); when shadow shading needs one and none is
     given, it is built here by the per-point shadow march, from the
@@ -299,9 +310,17 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
     why = _unsupported(scene, cfg)
     if why is not None:
         raise NotImplementedError(why)
-    if generator is None and (cfg.jitter_rays or cfg.spp > 1):
+    if generator is None and (cfg.jitter_rays or cfg.spp > 1
+                              or cfg.path_tracing):
         generator = torch.Generator(device=scene.device)
         generator.manual_seed(int(frame_index))
+    if cfg.path_tracing:
+        if cfg.pt_dense and cfg.sw is not None:
+            return ptdense.render_frame_dense(scene, cfg, camera,
+                                              pt_fields=pt_fields)
+        return pathtracer.render_frame(scene, cfg, camera,
+                                       pathtracer.GeneratorDraws(generator),
+                                       macrocells)
     if not _wants_light_grid(cfg):
         light_grid = None
     elif light_grid is None:
@@ -505,8 +524,9 @@ class Renderer:
     draws a frame (and accumulates, if enabled), `mapframe()` returns
     numpy arrays. With sparse sampling on, `render()` marches a budget of
     W*H/8 rays chosen around the focus (`render.sparse.render_sparse`)
-    and scatters them into the last frame. Path tracing and neural
-    volumes raise at `render()`."""
+    and scatters them into the last frame. A dense path-traced config
+    caches the scatter lattices (`_pt_fields`) until the volume, TF or
+    density scale changes. Neural volumes raise at `render()`."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig()):
         self.scene = scene
@@ -517,6 +537,7 @@ class Renderer:
         self._frame: Optional[Frame] = None
         self._macrocells: Optional[accel.MacrocellGrid] = None
         self._light_grid: Optional[torch.Tensor] = None
+        self._pt_fields = None  # ptdense (sigma, J) cache
         self._sparse = False
         self._focus: Optional[sparse.FocusParams] = None
         self._accumulating = False
@@ -560,6 +581,7 @@ class Renderer:
         self.scene = dataclasses.replace(self.scene, tfn=tfn)
         self._macrocells = None
         self._light_grid = None
+        self._pt_fields = None
         self._reset(rejit=False)
 
     def set_sample_per_pixel(self, spp: int) -> None:
@@ -586,12 +608,14 @@ class Renderer:
         self.scene = dataclasses.replace(self.scene, volume=vol)
         self._macrocells = None
         self._light_grid = None
+        self._pt_fields = None
         self._reset(rejit=False)
 
     def set_volume_density_scale(self, s: float) -> None:
         self.scene = dataclasses.replace(
             self.scene, density_scale=torch.tensor(float(s),
                                                    device=self._device))
+        self._pt_fields = None  # sigma scales with density
         self._reset(rejit=False)
 
     def set_path_tracing(self, enabled: bool) -> None:
@@ -637,6 +661,9 @@ class Renderer:
                 self.scene.tfn.value_range)
         if _wants_light_grid(self._cfg) and self._light_grid is None:
             self._light_grid = build_light_grid(self.scene, self._cfg)
+        if (self._cfg.path_tracing and self._cfg.pt_dense
+                and self._cfg.sw is not None and self._pt_fields is None):
+            self._pt_fields = ptdense.prepare(self.scene, self._cfg)
 
     def render(self) -> None:
         self.commit()
@@ -654,7 +681,8 @@ class Renderer:
             frame = render(self.scene, self._cfg, camera=self._camera,
                            frame_index=self._frame_index,
                            macrocells=self._macrocells,
-                           light_grid=self._light_grid)
+                           light_grid=self._light_grid,
+                           pt_fields=self._pt_fields)
         if self._accumulating:
             frame, self._accum = accumulate(frame, self._accum,
                                             self._frame_index)

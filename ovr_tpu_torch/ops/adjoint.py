@@ -85,7 +85,9 @@ def _slab_window(params: dict, n_steps: int) -> Optional[list]:
 
     When `params` holds a 3D floating-point "grid" read per step at the
     slab pair (kz[k], kz[k]+1) of the host list "kz", return for it (and
-    for a shadow lattice "lgrid" read at k0l[k], k0l[k]+1) the window size
+    for a shadow lattice "lgrid" read at k0l[k], k0l[k]+1, and for the
+    dense path tracer's emission lattice "jlat", (A, Nr, Nc, 3) read at
+    the grid's own slabs and windowed alike) the window size
     w such that the slab pairs of steps k and k-1 always fit in w slabs.
     Consecutive indices advance at most ceil(n_a / n_steps), so
     w = 2 + ceil(n_a / n_steps). The grid's window includes the previous
@@ -97,9 +99,10 @@ def _slab_window(params: dict, n_steps: int) -> Optional[list]:
     O(volume) traffic per step."""
     specs = []
     for key, idxk, lookback in (("grid", "kz", True),
+                                ("jlat", "kz", True),
                                 ("lgrid", "k0l", False)):
         g = params.get(key)
-        if params.get(idxk) is None or not _inexact(g) or g.ndim != 3:
+        if params.get(idxk) is None or not _inexact(g) or g.ndim < 3:
             continue  # integer storage has no cotangent
         n_a = g.shape[0]
         w = min(n_a, 2 + -(-n_a // max(n_steps, 1)))

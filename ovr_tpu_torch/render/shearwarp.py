@@ -31,10 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ovr_tpu_torch.core.sampling import safe_normalize, scalar
+from ovr_tpu_torch.core.sampling import (clip, intersect_box, safe_normalize,
+                                         scalar)
 from ovr_tpu_torch.core.scene import ORTHOGRAPHIC
-from ovr_tpu_torch.ops import swslice
+from ovr_tpu_torch.ops import adjoint, swslice
 from ovr_tpu_torch.render import geometry
+from ovr_tpu_torch.render.ptdense import full_f32
 from ovr_tpu_torch.render.camera import camera_basis
 
 
@@ -346,7 +348,7 @@ def _fan_rays(pg, qg, e, direction, axis, sign, ortho):
 # ---------------------------------------------------------------------------
 
 def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
-                     macrocells=None):
+                     macrocells=None, pt_fields=None):
     """Render one frame. Returns premultiplied (color (N,3), grad (N,3),
     depth (N,), alpha (N,)) flat screen buffers (finalize with
     `integrator.finalize`).
@@ -361,7 +363,14 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     (`geometry.render_geometries`); where one is opaque, its hit clamps
     the ray's interval (the slice loop's `exit_map`), and it composites
     behind the volume (premultiplied, its depth scaled by the ray's
-    speed) before the warp, as the JAX package's XLA slice loop does."""
+    speed) before the warp, as the JAX package's XLA slice loop does.
+
+    `pt_fields`: (sigma (D,H,W), J (D,H,W,3)), the dense path tracer's
+    lattices (`render.ptdense`): the planes of the scene volume's plan
+    sample them instead of the volume and composite opacity
+    1 - exp(-sigma dt) and emission J (`_pt_composite`, plain PyTorch:
+    the JAX package runs this gather in its XLA loop, never in the slice
+    kernel); no surfaces, shading or plane skipping."""
     sw: SwStatic = cfg.sw
     if sw is None:
         raise ValueError("cfg.sw unresolved; call cfg.resolved(scene)")
@@ -448,6 +457,12 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     cha = torch.maximum(cl_a, cl_b)
     lo1, lo2 = lo[w1], lo[w2]
     ex1, ex2 = ext[w1], ext[w2]
+    warp = (cfg, sw, p_scr, q_scr, p_lo, q_lo, dp, dq, pg, u, v, e,
+            direction, horizontal, vertical, axis, w1, w2, sign, ortho)
+    if pt_fields is not None:
+        return _sw_warp_out(*_pt_composite(
+            pt_fields, sw, vol, pg, qg, e, direction, lam, z_rel, dz, dlam,
+            n_loc, axis, sign, ortho), *warp)
 
     rgba_tab = _common_rgba_table(scene.tfn.color, scene.tfn.alpha)
     value_range = scene.tfn.value_range
@@ -520,9 +535,80 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         depth = depth + tr * bg_a * torch.minimum(
             t_bg, scalar(1e30, t_bg.dtype, t_bg.device)) * speed
         alpha = alpha + tr * bg_a
-    return _sw_warp_out(color, grad, depth, alpha, cfg, sw, p_scr, q_scr,
-                        p_lo, q_lo, dp, dq, pg, u, v, e, direction,
-                        horizontal, vertical, axis, w1, w2, sign, ortho)
+    return _sw_warp_out(color, grad, depth, alpha, *warp)
+
+
+def _mm(a, b, bf16: bool):
+    """a @ b in f32 (TF32 off), with bfloat16 operands under `bf16`
+    (products of two bf16 are exact in f32), as the JAX package's `_mm`."""
+    if bf16:
+        a, b = swslice.bf16_round(a), swslice.bf16_round(b)
+    with full_f32():
+        return a @ b
+
+
+def _pt_composite(pt_fields, sw: SwStatic, vol, pg, qg, e, direction, lam,
+                  z_rel, dz, dlam, n_loc, axis, sign, ortho):
+    """The dense path tracer's camera gather in the fan: per plane of the
+    scene volume's schedule, sigma and each channel of J z-lerped between
+    two lattice slabs and resampled at the fan rays by two interpolation
+    matmuls (bf16 operands under sw.bf16), opacity
+    1 - exp(-max(sigma, 0) dt_w) over the ray's box-clipped interval,
+    emission J unclipped, composited front to back by
+    `ops.adjoint.over_scan` (differentiable, bounded memory). Mirrors the
+    `pt_fields` branch of the JAX package's XLA slice loop. Returns the
+    fan's premultiplied (color, grad (zero), depth, alpha)."""
+    sig_lat, j_lat = pt_fields
+    w1, w2 = _perp_axes(axis)
+    dt = pg.dtype
+    grid = _volume_view(sig_lat, axis, sign)  # (A, Nr, Nc)
+    jv = j_lat.permute(2 - axis, 2 - w2, 2 - w1, 3)  # (A, Nr, Nc, 3)
+    jlat = jv.flip(0) if sign < 0 else jv
+    n_a, n_r, n_c = grid.shape
+    lo, hi = vol.world_lo, vol.world_hi
+    ext = hi - lo
+    c = clip(z_rel / ext[axis] * n_a - 0.5, 0.0, n_a - 1.0)
+    k0 = torch.clamp(torch.floor(c).to(torch.int32), 0, n_a - 2)
+    fz = c - k0.to(dt)
+    ovec, dvec, speed = _fan_rays(pg, qg, e, direction, axis, sign, ortho)
+    l_in, l_out = intersect_box(ovec, dvec, lo, hi, torch.zeros_like(speed),
+                                torch.full_like(speed, 3.4e38))
+    l_out = torch.maximum(l_out, l_in)
+    bf16 = sw.bf16
+
+    def f(p, j):
+        k = p["kz"][j]
+        lam_j, fz_j = p["lam"][j], p["fz"][j]
+        zero = scalar(0.0, lam_j.dtype, lam_j.device)
+        sl, jsl = p["grid"][k:k + 2], p["jlat"][k:k + 2]
+        plane = sl[0] * (1.0 - fz_j) + sl[1] * fz_j
+        jplane = jsl[0] * (1.0 - fz_j) + jsl[1] * fz_j
+        if ortho:
+            x1 = p["pg"] + p["dw1"] * lam_j
+            x2 = p["qg"] + p["dw2"] * lam_j
+        else:
+            x1 = p["ew1"] + p["pg"] * lam_j
+            x2 = p["ew2"] + p["qg"] * lam_j
+        wc = _interp_matrix((x1 - p["lo1"]) / p["ex1"] * n_c - 0.5, n_c)
+        wr = _interp_matrix((x2 - p["lo2"]) / p["ex2"] * n_r - 0.5, n_r)
+        # sigma and the three channels of J through the same two products
+        planes = torch.cat([plane[None], jplane.permute(2, 0, 1)])
+        smp = _mm(_mm(wr, planes, bf16), wc.T, bf16)  # (4, Hi, Wi)
+        seg_lo = torch.maximum(lam_j - p["half"], p["lin"])
+        seg_hi = torch.minimum(lam_j + p["half"], p["lout"])
+        dt_w = torch.maximum(seg_hi - seg_lo, zero) * p["speed"]
+        a = 1.0 - torch.exp(-torch.maximum(smp[0], zero) * dt_w)
+        v = torch.cat([smp[1:], (lam_j * p["speed"])[None]])
+        return v, a
+
+    params = dict(
+        grid=grid, jlat=jlat, kz=k0.tolist(), fz=fz, lam=lam, pg=pg, qg=qg,
+        lin=l_in, lout=l_out, speed=speed, half=0.5 * dz * dlam,
+        ew1=e[w1], ew2=e[w2], dw1=direction[w1], dw2=direction[w2],
+        lo1=lo[w1], lo2=lo[w2], ex1=ext[w1], ex2=ext[w2])
+    big_v, trans = adjoint.over_scan(f, n_loc, params)
+    color = big_v[:3].permute(1, 2, 0)
+    return (color, torch.zeros_like(color), big_v[3], 1.0 - trans)
 
 
 def _sw_warp_out(color, grad, depth, alpha, cfg, sw: SwStatic, p_scr, q_scr,

@@ -308,20 +308,14 @@ def _tiny_scene(**kw):
     return dataclasses.replace(scene, **kw)
 
 
-@pytest.mark.parametrize("what", ["path_tracing", "neural"])
+@pytest.mark.parametrize("what", ["neural"])
 def test_unsupported_features_raise(what):
-    scene = _tiny_scene()
+    """A neural-field volume (the next slice) raises. Path tracing raised
+    until it was ported: tests/test_torch_pathtracer.py."""
+    scene = dataclasses.replace(_tiny_scene(), volume=object())
     kw = dict(width=16, height=16, sampling_rate=8.0, shading="none",
               method="auto")
-    if what == "path_tracing":
-        kw["path_tracing"] = True
-    elif what == "neural":
-        scene = dataclasses.replace(scene, volume=object())
-        cfg = api.RenderConfig(**kw).resolved(_tiny_scene())
-        with pytest.raises(NotImplementedError, match="slice"):
-            api.render(scene, cfg)
-        return
-    cfg = api.RenderConfig(**kw).resolved(scene)
+    cfg = api.RenderConfig(**kw).resolved(_tiny_scene())
     with pytest.raises(NotImplementedError, match="slice"):
         api.render(scene, cfg)
 

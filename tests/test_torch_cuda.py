@@ -18,12 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (MARCH_CASES, PlainCalls, field, march_scene,
-                        multivol_scene, with_iso, with_sphere)
+from chip_smoke import (MARCH_CASES, PlainCalls, bf16_frame_rule,
+                        capture_gather, field, march_scene, multivol_scene,
+                        with_iso, with_sphere)
 from ovr_tpu_torch import api
 from ovr_tpu_torch.core.scene import Camera, Light, simple_scene
-from ovr_tpu_torch.ops import swslice
-from ovr_tpu_torch.render import accel
+from ovr_tpu_torch.ops import adjoint, swslice
+from ovr_tpu_torch.render import accel, ptdense
 
 
 def _field(n, kind):
@@ -468,3 +469,101 @@ def test_surfaces_and_instances_render_on_card(what):
                                atol=1e-4)
     np.testing.assert_allclose(a.depth.cpu().numpy(), b.depth.numpy(),
                                atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["mc-global", "mc-dda", "dense",
+                                  "dense-bf16"])
+def test_path_tracing_on_card_matches_cpu(what):
+    """Path-traced frames on the card against the CPU (32^3): the MC
+    tracker with the same CPU generator's draws on both, rgba within
+    1e-4 but for pixels whose path flips at an acceptance tie (at most
+    0.5%); the dense solver rgba 1e-4 and depth 5e-4, under sw_bf16 by
+    chip_smoke.py's `bf16_frame_rule` (the devices' positions an f32 ulp
+    apart move bf16 rounding ties), and its gather on the card's own
+    inputs run on the CPU within 1e-4. No frame launches the slice
+    kernel or runs its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = field(32, "bench", "cuda")
+    frames, gathers = [], []
+    for grid in (g, g.cpu()):
+        scene = dataclasses.replace(
+            simple_scene(grid, device=grid.device),
+            camera=Camera.create(**CAMERAS["persp"], device=grid.device))
+        cfg = api.RenderConfig(
+            width=48, height=32, spp=2, sampling_rate=32.0,
+            path_tracing=True, pt_dense=what.startswith("dense"),
+            pt_lattice=16, use_macrocells=what == "mc-dda", method="auto",
+            sw_bf16=what == "dense-bf16").resolved(scene)
+        assert (cfg.sw is None) == what.startswith("mc")
+        mc = accel.build_macrocells(grid, scene.tfn.alpha,
+                                    scene.tfn.value_range)
+        before = swslice.LAUNCHES
+        with PlainCalls() as plain:
+            if what.startswith("dense"):
+                frame, seen = capture_gather(
+                    scene, cfg, ptdense.prepare(scene, cfg))
+                gathers.append(seen)
+            else:
+                frame = api.render(scene, cfg, macrocells=mc,
+                                   generator=torch.Generator().manual_seed(3))
+            frames.append(frame)
+        assert swslice.LAUNCHES == before and plain.n == 0
+    a, b = frames
+    d = (a.rgba.cpu() - b.rgba).abs().amax(-1)
+    if what.startswith("mc"):
+        assert float((d > 1e-4).float().mean()) <= 0.005
+        assert float(b.rgba[..., :3].max()) > 0.05
+    else:
+        seen = gathers[0]
+        host = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in seen["params"].items()}
+        for x, y in zip(adjoint.over_scan(seen["f"], seen["n"],
+                                          seen["params"]),
+                        adjoint.over_scan(seen["f"], seen["n"], host)):
+            assert float((x.cpu() - y).abs().max()) <= 1e-4
+        if what == "dense-bf16":
+            ok, stats = bf16_frame_rule(a, b)
+            assert ok, stats
+        else:
+            assert float(d.max()) <= 1e-4
+            assert float((a.depth.cpu() - b.depth).abs().max()) <= 5e-4
+
+
+@pytest.mark.cuda
+def test_scene_file_loads_onto_card():
+    """io.create_scene puts every tensor of the VIDI3D fixture on the
+    card, equal to the CPU load; its frame on the card matches the
+    CPU's (rgba 1e-4, depth 5e-4) through one slice-kernel launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from ovr_tpu_torch import io
+    path = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "scene_tiny.json")
+    card, host = (io.create_scene(path, device=d) for d in ("cuda", "cpu"))
+    for c, h in ((card.volume.grid, host.volume.grid),
+                 (card.volume.world_hi, host.volume.world_hi),
+                 (card.volume.data_range, host.volume.data_range),
+                 (card.tfn.color, host.tfn.color),
+                 (card.tfn.alpha, host.tfn.alpha),
+                 (card.tfn.value_range, host.tfn.value_range),
+                 (card.camera.from_, host.camera.from_),
+                 (card.light.direction, host.light.direction),
+                 (card.volume_sampling_rate, host.volume_sampling_rate)):
+        assert c.is_cuda and torch.equal(c.cpu(), h)
+    frames = []
+    for scene in (card, host):
+        cfg = api.RenderConfig(width=32, height=32, shading="diffuse",
+                               method="auto", sampling_rate=float(
+                                   scene.volume_sampling_rate)
+                               ).resolved(scene)
+        before = swslice.LAUNCHES
+        frames.append(api.render(scene, cfg))
+        assert swslice.LAUNCHES - before == int(scene is card)
+    np.testing.assert_allclose(frames[0].rgba.cpu().numpy(),
+                               frames[1].rgba.numpy(), atol=1e-4)
+    np.testing.assert_allclose(frames[0].depth.cpu().numpy(),
+                               frames[1].depth.numpy(), atol=5e-4)
