@@ -79,10 +79,22 @@
    against the MC mean by tests/test_pathtracer.py's rule; no
    path-traced frame may launch the slice kernel or run its plain
    version;
-8. prints one JSON line each of backward, march, surfaces, scene-file
-   and path-tracing and kernel measurements (the kernel line with an
-   entry for the f32 function and one for its bf16 variant), then,
-   last, the device line {"ok": true, "device": {...}}.
+8. renders neural-field volumes: at a small hash grid it holds the
+   encoding, the field (f32 and bf16), the bakes, proxy frames (none,
+   diffuse, shadow: the slice kernel once a frame), the exact field
+   march and the train step's gradients on the card against the CPU;
+   at full width (12 levels, 2^17 entries, a 24-64-64-1 MLP) it fits the
+   field to the 1024^3 volume with `fit_to_grid`, bakes the 512^3 proxy
+   (`bake_grid_host`), renders 1080p rate-1024 frames through `Renderer`
+   in diffuse and shadow (the main path, its launches counted from 0),
+   holds the kernel against its plain version on a band of those
+   frames' inputs and times it alone, takes one inverse-rendering step
+   at a 128^3 proxy, holds the proxy frame against the exact field
+   march (480x270: mean |rgba| < 0.05) and renders the unfitted field;
+9. prints one JSON line each of backward, march, surfaces, scene-file
+   and path-tracing, neural and kernel measurements (the kernel line
+   with an entry for the f32 function and one for its bf16 variant),
+   then, last, the device line {"ok": true, "device": {...}}.
 
 Exits non-zero without a CUDA device, without the repository beside it,
 or when any phase fails. Imports neither JAX nor the JAX package.
@@ -90,6 +102,7 @@ or when any phase fails. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -897,11 +910,12 @@ FD_EPS = 1e-2  # step of the directional difference in the TF alpha
 def backward_headline(grid, smi):
     """The headline frame's backward (bench.py's BENCH_BACKWARD loss,
     gradients of the grid and the TF alpha) per shading, and in diffuse
-    under sw_bf16 (BENCH_BF16=1): 1 warm-up and 1
-    timed step (a step takes 17-32 s; since the march phase was added
-    the run keeps within its time by timing one), CUDA events around the
-    forward and the backward; checks the gradients and holds the TF
-    alpha's against a central directional difference."""
+    under sw_bf16 (BENCH_BF16=1): 1 timed step each, after 1 warm-up step
+    before the first (a step takes 14-32 s; since the march phase the run
+    keeps within its time by timing one, and since the neural phase the
+    first warm-up serves all four), CUDA events around the forward and
+    the backward; checks the gradients and holds the TF alpha's against
+    a central directional difference."""
     import torch
     from ovr_tpu_torch import api
     from ovr_tpu_torch.ops import swslice
@@ -922,10 +936,13 @@ def backward_headline(grid, smi):
                 lg = api.build_light_grid(scene, cfg)
         kw = dict(macrocells=mc, light_grid=lg)
         n0, b0 = swslice.LAUNCHES, swslice.LAUNCHES_BF16
-        t0 = time.perf_counter()
-        loss, g, _ = loss_and_grads(scene, cfg, ("grid", "alpha"), **kw)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
+        warm = not results  # one warm-up step, before the first mode
+        first_s = None
+        if warm:
+            t0 = time.perf_counter()
+            loss_and_grads(scene, cfg, ("grid", "alpha"), **kw)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
         steps = 1
         torch.cuda.reset_peak_memory_stats()
         fwd, bwd = [], []
@@ -938,8 +955,8 @@ def backward_headline(grid, smi):
             fwd.append(start.elapsed_time(marks[0]))
             bwd.append(marks[0].elapsed_time(marks[1]))
         peak = torch.cuda.max_memory_allocated()
-        launches = (swslice.LAUNCHES - n0) / (1 + steps)
-        launches_bf16 = (swslice.LAUNCHES_BF16 - b0) / (1 + steps)
+        launches = (swslice.LAUNCHES - n0) / (warm + steps)
+        launches_bf16 = (swslice.LAUNCHES_BF16 - b0) / (warm + steps)
         gg, ga = g["grid"], g["alpha"]
         finite = bool(torch.isfinite(gg).all() and torch.isfinite(ga).all())
         nonzero = bool(gg.abs().max() > 0 and ga.abs().max() > 0)
@@ -969,8 +986,8 @@ def backward_headline(grid, smi):
         results[label] = r
         log(f"backward headline {label:12s} 1920x1080 1024^3 bf16: step "
             f"{', '.join(f'{x:.0f}' for x in step_ms)} ms ({steps} timed "
-            f"step{'s' if steps > 1 else ''} after a warm-up of "
-            f"{first_s:.1f} s; "
+            f"step{'s' if steps > 1 else ''}"
+            f"{f' after a warm-up of {first_s:.1f} s' if warm else ''}; "
             f"forward {', '.join(f'{x:.1f}' for x in fwd)} ms, backward "
             f"{', '.join(f'{x:.0f}' for x in bwd)} ms), {r['mrays_s']:.3f} "
             f"Mrays/s fwd+bwd, peak memory {peak / 2**30:.2f} GiB, "
@@ -2374,6 +2391,390 @@ def pt_dense_vs_mc():
                 pixels=int(inside.sum()))
 
 
+# ---------------------------------------------------------------------------
+# neural-field volumes (the baked proxy through the slice kernel)
+# ---------------------------------------------------------------------------
+
+# the small hash grid of tests/test_neural.py for the card-vs-CPU cases
+NEURAL_SMALL = dict(n_levels=4, log2_table_size=12, base_resolution=4,
+                    max_resolution=32)
+NEURAL_FIT_STEPS = 300  # fit_to_grid steps at batch 2^14 (the headline)
+NEURAL_FRAMES = 3  # timed Renderer frames per shading (after a warm-up)
+
+
+def neural_small_scene(device, compute_dtype=None, scale=1e4, proxy=24):
+    """A small field (NEURAL_SMALL, 16 hidden units) with its tables
+    scaled by `scale` so that it varies (the ngp init is constant to
+    ~1e-4), made on the CPU from seed 7 and copied to `device`, in
+    tests/test_neural.py's scene."""
+    import numpy as np
+    import torch
+    from ovr_tpu_torch.core.scene import Camera, Scene, TransferFunction
+    from ovr_tpu_torch.neural import HashGridConfig, init_field
+    field = init_field(7, HashGridConfig(**NEURAL_SMALL), hidden=16,
+                       n_hidden=1, device="cpu",
+                       compute_dtype=compute_dtype or torch.float32)
+    with torch.no_grad():
+        field.tables.mul_(scale)
+    field = field.to(device)
+    tfn = TransferFunction.create(
+        np.stack([np.linspace(0, 1, 8)] * 3, -1), np.linspace(0, 0.8, 8),
+        (0.0, 1.0), device=device)
+    cam = Camera.create(from_=(0.5, 0.5, -1.8), at=(0.5, 0.5, 0.5),
+                        fovy=45.0, device=device)
+    return Scene.create(field, tfn, camera=cam, volume_sampling_rate=24.0)
+
+
+def neural_parity():
+    """The neural modules on the card against the same on the CPU, at
+    small size: encode and the field (f32 1e-6 / 1e-5; bf16 within 1e-5
+    but for rounding ties, at most 1% of values and 2e-2), the host bake
+    against the chunked bake (1e-6) and across devices (1e-5), proxy
+    frames (auto at a 24^3 proxy: none, diffuse, shadow; each must launch
+    the slice kernel once and never run its plain version on the card)
+    and the exact field march (diffuse) at rgba 1e-4 / depth 1e-3, and
+    the train step's gradients of the tables and weights within 1e-3 of
+    the largest element. Returns the largest differences."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.neural import field_sample, hashgrid, train
+    from ovr_tpu_torch.ops import swslice
+    out = {}
+    t0 = time.perf_counter()
+    sc, sg = neural_small_scene("cpu"), neural_small_scene("cuda")
+    fc, fg = sc.volume, sg.volume
+    gen = torch.Generator().manual_seed(3)
+    p = torch.rand((1 << 16, 3), generator=gen) * 1.2 - 0.1
+    with torch.no_grad():
+        e = float((hashgrid.encode(fg.tables, fg.grid_cfg, p.cuda()).cpu()
+                   - hashgrid.encode(fc.tables, fc.grid_cfg, p)).abs().max())
+        f = float((field_sample(fg, p.cuda()).cpu()
+                   - field_sample(fc, p)).abs().max())
+        bc = neural_small_scene("cpu", torch.bfloat16).volume
+        bg = neural_small_scene("cuda", torch.bfloat16).volume
+        d16 = (field_sample(bg, p.cuda()).cpu() - field_sample(bc, p)).abs()
+        host = train.bake_grid_host(fg, (24, 40, 32), max_slab_points=24 * 40 * 5)
+        traced = train.bake_grid(fg, (24, 40, 32), chunk=1000)
+        b_tr = float((host - traced).abs().max())
+        b_dev = float((host.cpu() - train.bake_grid_host(
+            fc, (24, 40, 32), max_slab_points=24 * 40 * 5)).abs().max())
+    ties = float((d16 > 1e-5).float().mean())
+    out.update(encode=e, field_f32=f, field_bf16_max=float(d16.max()),
+               field_bf16_tie_share=ties, bake_host_vs_chunked=b_tr,
+               bake_card_vs_cpu=b_dev)
+    ok = (e <= 1e-6 and f <= 1e-5 and ties <= 0.01
+          and float(d16.max()) <= 2e-2 and b_tr <= 1e-6 and b_dev <= 1e-5)
+    frames = {}
+    for method, shading in (("auto", "none"), ("auto", "diffuse"),
+                            ("auto", "shadow"), ("march", "diffuse")):
+        kw = dict(width=32, height=24, sampling_rate=24.0, method=method,
+                  shading=shading, neural_proxy_res=24)
+        cc = api.RenderConfig(**kw).resolved(sc)
+        cg = api.RenderConfig(**kw).resolved(sg)
+        n0 = swslice.LAUNCHES
+        with torch.no_grad(), PlainCalls() as plain:
+            a = api.render(sc, cc)
+            b = api.render(sg, cg)
+            torch.cuda.synchronize()
+        n = swslice.LAUNCHES - n0
+        want = 1 if method == "auto" else 0
+        err_c = float((b.rgba.cpu() - a.rgba).abs().max())
+        err_d = float((b.depth.cpu() - a.depth).abs().max())
+        frames[f"{method}-{shading}"] = dict(rgba=err_c, depth=err_d,
+                                             launches=n)
+        ok = (ok and (cg.sw is not None) == (method == "auto")
+              and n == want and plain.n == 0 and err_c <= 1e-4
+              and err_d <= 1e-3 and float(b.rgba[..., 3].max()) > 0.1)
+    out["frames"] = frames
+    grads = []
+    for scene in (sc, sg):
+        cfg = api.RenderConfig(width=32, height=24, sampling_rate=24.0,
+                               method="auto", shading="diffuse",
+                               neural_proxy_res=24).resolved(scene)
+        step, state = train.make_image_train_step(scene, cfg, lr=1e-3)
+        target = torch.zeros((24, 32, 4), device=scene.device)
+        _, loss = step(state, scene.camera, target)
+        grads.append([float(loss)] + [q.grad.detach().cpu()
+                                      for q in scene.volume.parameters()])
+    g_err = max(float((g - c).abs().max() / c.abs().max())
+                for c, g in zip(grads[0][1:], grads[1][1:]))
+    out.update(train_loss=(grads[0][0], grads[1][0]),
+               train_grad_max_norm_err=g_err,
+               seconds=time.perf_counter() - t0)
+    ok = ok and g_err <= 1e-3 and abs(grads[0][0] - grads[1][0]) <= (
+        1e-4 * abs(grads[0][0]))
+    log(f"neural parity 24^3 card vs CPU: encode {e:.2e}, field f32 "
+        f"{f:.2e}, bf16 {float(d16.max()):.2e} ({100 * ties:.2f}% beyond "
+        f"1e-5), host bake vs chunked {b_tr:.2e}, bake card vs CPU "
+        f"{b_dev:.2e}; frames " + ", ".join(
+            f"{k} rgba {v['rgba']:.2e} depth {v['depth']:.2e} launches "
+            f"{v['launches']}" for k, v in frames.items())
+        + f"; train step loss {grads[0][0]:.6e} / {grads[1][0]:.6e}, "
+        f"gradients {g_err:.2e} of the largest element "
+        f"({out['seconds']:.1f} s) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the neural modules disagree between card and CPU")
+    return out
+
+
+def neural_kernel(label, scene, cfg, lg, full_frame_ms):
+    """The slice kernel alone on a proxy frame's inputs: its time, the
+    bound from this run's samples, and its band against the plain
+    version (`band_check`). These launches are not the main path's."""
+    from ovr_tpu_torch.ops import swslice
+    args, kw = capture(scene, cfg, light_grid=lg)
+    full = swslice.slice_composite(*args, **kw)
+    cnt, (staged, direct) = counted(args, kw, full)
+    r = dict(frame_ms=full_frame_ms)
+    r["kernel_ms"] = cuda_ms(lambda: swslice.slice_composite(*args, **kw), 5)
+    (r["bound_ms"], r["bound_by"], r["samples"], r["bytes"],
+     r["ops_per_sample"]) = bound(args, kw, cnt["pixel_samples"])
+    r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
+    r["fan"] = (args[4].shape[0], args[3].shape[0])
+    r["planes"] = args[6]
+    r["planes_staged"], r["planes_direct"] = staged, direct
+    band_check(label, r, args, kw, full)
+    return r
+
+
+def neural_profile(field, grid):
+    """Kernel launches and device time (torch.profiler) of one
+    `fit_to_grid` step at batch 2^14 (on a copy of the field) and of one
+    2^24-point slab of the 512^3 bake (64 planes), against their wall
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ovr_tpu_torch.neural import train
+    out = {}
+    spare = copy.deepcopy(field)  # the fit step must not move `field`
+    work = {"fit_step": lambda: train.fit_to_grid(spare, grid, steps=1),
+            "bake_slab": lambda: train.bake_grid_host(field, (512, 512, 64))}
+    for name, fn in work.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        busy = sum(e.device_time_total for e in ev) / 1e3
+        top = sorted(ev, key=lambda e: -e.device_time_total)[:3]
+        out[name] = dict(launches=sum(e.count for e in ev), device_ms=busy,
+                         wall_ms=wall, top=[(e.key[:60], e.device_time_total
+                                             / 1e3) for e in top])
+        log(f"neural profile {name}: {out[name]['launches']} kernel launches, "
+            f"{busy:.2f} ms of kernels in {wall:.2f} ms wall under the "
+            f"profiler; top: " + ", ".join(f"{k} {v:.2f} ms"
+                                           for k, v in out[name]["top"]))
+    return out
+
+
+def neural_headline(grid, smi):
+    """BASELINE config #4 at full width on the card: the default hash
+    grid (12 levels x 2 features, 2^17 entries, resolutions 16-512) and a
+    24-64-64-1 MLP from seed 0, fitted to bench.py's 1024^3 field (batch
+    2^14, NEURAL_FIT_STEPS steps); the 512^3 proxy baked slab by slab;
+    1080p rate-1024 frames through `Renderer` (auto, diffuse and shadow;
+    the main path: the slice kernel once a frame, its counts zeroed just
+    before); the kernel alone and against its plain version on the
+    proxy; one inverse-rendering step at a 128^3 proxy; the exact field
+    march at 480x270 (shading none) against the proxy frame, by
+    tests/test_neural.py's rule (mean |rgba| < 0.05); and the unfitted
+    field's frame (bench.py's BENCH_NEURAL=fwd)."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.core.scene import Camera
+    from ovr_tpu_torch.neural import init_field, train
+    from ovr_tpu_torch.ops import swslice
+    res = {}
+    dense = make_scene(grid, "bench", "persp")
+    gen = torch.Generator().manual_seed(0)
+    field = init_field(gen, hidden=64, n_hidden=2, device="cuda")
+    unfitted = init_field(torch.Generator().manual_seed(0), hidden=64,
+                          n_hidden=2, device="cuda")
+    n_par = sum(q.numel() for q in field.parameters())
+
+    # 1. fit to the 1024^3 field
+    fit_gen = torch.Generator(device="cuda")
+    fit_gen.manual_seed(0)
+    from ovr_tpu_torch.render.pathtracer import GeneratorDraws
+    train.fit_to_grid(field, grid, steps=2, draws=GeneratorDraws(fit_gen))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses = train.fit_to_grid(field, grid, steps=NEURAL_FIT_STEPS,
+                                  draws=GeneratorDraws(fit_gen))
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3 / NEURAL_FIT_STEPS
+    losses = losses.cpu()
+    res["fit"] = dict(steps=NEURAL_FIT_STEPS, batch=1 << 14,
+                      ms_per_step=fit_ms, loss_first=float(losses[0]),
+                      loss_last=float(losses[-1]),
+                      loss_last10_mean=float(losses[-10:].mean()),
+                      peak_bytes=torch.cuda.max_memory_allocated(),
+                      parameters=n_par)
+    log(f"neural fit 1024^3 bf16 target, batch 2^14: {fit_ms:.2f} ms a step "
+        f"({NEURAL_FIT_STEPS} steps after 2 warm-up), loss "
+        f"{float(losses[0]):.4e} -> {float(losses[-1]):.4e} (last 10 "
+        f"{res['fit']['loss_last10_mean']:.4e}), peak "
+        f"{res['fit']['peak_bytes'] / 2**30:.2f} GiB, {n_par} parameters; "
+        f"{smi}")
+    if not (torch.isfinite(losses).all()
+            and res["fit"]["loss_last10_mean"] < 0.5 * float(losses[0])):
+        raise SystemExit("fit_to_grid did not fit the field")
+
+    res["profile"] = neural_profile(field, grid)
+
+    # 2. the 512^3 proxy, slab by slab
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proxy = train.bake_grid_host(field, (512, 512, 512))
+    torch.cuda.synchronize()
+    res["bake_512"] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                           peak_bytes=torch.cuda.max_memory_allocated(),
+                           slabs=8, min=float(proxy.min()),
+                           max=float(proxy.max()))
+    log(f"neural bake 512^3 (bake_grid_host, 8 slabs of 2^24 points): "
+        f"{res['bake_512']['ms']:.0f} ms, peak "
+        f"{res['bake_512']['peak_bytes'] / 2**30:.2f} GiB, values "
+        f"[{res['bake_512']['min']:.3f}, {res['bake_512']['max']:.3f}]")
+
+    # 3. Renderer frames: the main path
+    scene = dataclasses.replace(dense, volume=field)
+    frames = {}
+    swslice.LAUNCHES = swslice.LAUNCHES_BF16 = 0
+    for shading in ("diffuse", "shadow"):
+        cfg = api.RenderConfig(width=1920, height=1080, sampling_rate=1024.0,
+                               method="auto", shading=shading)
+        rend = api.Renderer(scene, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rend.commit()
+        torch.cuda.synchronize()
+        commit_ms = (time.perf_counter() - t0) * 1e3
+        if rend._cfg.sw is None or rend._proxy_grid is None:
+            raise SystemExit("the neural frame does not take the proxy's "
+                             "shear-warp path")
+        n0 = swslice.LAUNCHES
+        with PlainCalls() as plain:
+            rend.render()
+            torch.cuda.reset_peak_memory_stats()
+            rend.render_time = 0.0
+            for _ in range(NEURAL_FRAMES):
+                rend.render()
+        ms = rend.render_time * 1e3 / NEURAL_FRAMES
+        if swslice.LAUNCHES - n0 != 1 + NEURAL_FRAMES or plain.n:
+            raise SystemExit(f"neural {shading}: {swslice.LAUNCHES - n0} "
+                             f"kernel launches, {plain.n} plain calls")
+        check_frame(f"neural {shading}", rend._frame, 1920, 1080)
+        frames[shading] = dict(
+            frame_ms=ms, mrays_s=1920 * 1080 / (ms * 1e-3) / 1e6,
+            commit_ms=commit_ms, peak_bytes=torch.cuda.max_memory_allocated(),
+            alpha_mean=float(rend._frame.rgba[..., 3].mean()),
+            proxy_vs_baked=float((rend._proxy_grid - proxy).abs().max()),
+            rend=rend)
+    launches = swslice.LAUNCHES
+    if launches < 1 or swslice.LAUNCHES_BF16:
+        raise SystemExit("the neural main path never launched the slice "
+                         "kernel (or launched its bf16 variant)")
+    for shading, r in frames.items():
+        rend = r.pop("rend")
+        pscene = api.bake_proxy_scene(scene, rend._cfg, grid=rend._proxy_grid)
+        r.update(neural_kernel(f"neural {shading}", pscene, rend._cfg,
+                               rend._light_grid, r["frame_ms"]))
+        log(f"neural headline {shading:8s} 1920x1080, 512^3 proxy, rate "
+            f"1024 (Renderer): frame {r['frame_ms']:.2f} ms "
+            f"({r['mrays_s']:.2f} Mrays/s), commit (bake"
+            f"{' + lattice' if shading == 'shadow' else ''}) "
+            f"{r['commit_ms']:.0f} ms, kernel {r['kernel_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}, "
+            f"{100 * r['share_of_bound']:.1f}%), fan {r['fan']}, "
+            f"{r['planes']} planes, peak {r['peak_bytes'] / 2**30:.2f} GiB, "
+            f"mean alpha {r['alpha_mean']:.3f}; {smi}")
+        del rend
+    res["frames"] = frames
+    res["launches"] = launches
+
+    # 4. one inverse-rendering step at a 128^3 proxy (bench.py's
+    # BENCH_NEURAL=train with BENCH_PROXY=128)
+    cfg = api.RenderConfig(width=1920, height=1080, sampling_rate=1024.0,
+                           method="auto", shading="diffuse",
+                           neural_proxy_res=128).resolved(scene)
+    step, state = train.make_image_train_step(scene, cfg, lr=1e-3)
+    target = torch.zeros((1080, 1920, 4), device="cuda")
+    n0 = swslice.LAUNCHES
+    state, loss0 = step(state, scene.camera, target)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss1 = step(state, scene.camera, target)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    g = [q.grad for q in field.parameters()]
+    finite = all(bool(torch.isfinite(x).all()) for x in g)
+    res["train_step_128"] = dict(
+        ms=step_ms, peak_bytes=torch.cuda.max_memory_allocated(),
+        loss=(float(loss0), float(loss1)), launches_per_step=(
+            swslice.LAUNCHES - n0) / 2, grad_tables_max=float(
+                g[0].abs().max()), n_slices=cfg.sw.n_slices,
+        fan=(cfg.sw.inter_h, cfg.sw.inter_w))
+    log(f"neural train step 1920x1080, 128^3 proxy (differentiable bake), "
+        f"rate 1024, diffuse, lr 1e-3: {step_ms:.0f} ms, peak "
+        f"{res['train_step_128']['peak_bytes'] / 2**30:.2f} GiB, loss "
+        f"{float(loss0):.5e} -> {float(loss1):.5e}, kernel launches a step "
+        f"{res['train_step_128']['launches_per_step']:.0f}; {smi}")
+    if not finite or float(g[0].abs().max()) == 0 or not float(loss1) < float(
+            loss0):
+        raise SystemExit("the neural train step failed its checks")
+    del state, step, g
+
+    # 5. the exact field march against the proxy frame
+    small = dict(width=480, height=270, sampling_rate=1024.0,
+                 shading="none")
+    with torch.no_grad():
+        mcfg = api.RenderConfig(method="march", fast_math=True,
+                                **small).resolved(scene)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exact = api.render(scene, mcfg)
+        torch.cuda.synchronize()
+        march_ms = (time.perf_counter() - t0) * 1e3
+        pcfg = api.RenderConfig(method="auto", **small).resolved(scene)
+        fast = api.render(scene, pcfg, proxy_grid=proxy)
+    err = float((fast.rgba - exact.rgba).abs().mean())
+    res["march_vs_proxy_480x270"] = dict(
+        mean_abs_rgba=err, march_ms=march_ms,
+        march_alpha_mean=float(exact.rgba[..., 3].mean()))
+    log(f"neural exact march 480x270 rate 1024 (fast_math, shading none): "
+        f"{march_ms:.0f} ms; the 512^3 proxy frame against it: mean |rgba| "
+        f"{err:.4f} (< 0.05) {'ok' if err < 0.05 else 'FAIL'}")
+    if not (err < 0.05 and float(exact.rgba[..., 3].max()) > 0.1):
+        raise SystemExit("the proxy frame does not approximate the field")
+
+    # 6. the unfitted field (bench.py's BENCH_NEURAL=fwd)
+    uscene = dataclasses.replace(dense, volume=unfitted)
+    rend = api.Renderer(uscene, api.RenderConfig(
+        width=1920, height=1080, sampling_rate=1024.0, method="auto",
+        shading="diffuse"))
+    rend.render()
+    rend.render_time = 0.0
+    for _ in range(NEURAL_FRAMES):
+        rend.render()
+    ms = rend.render_time * 1e3 / NEURAL_FRAMES
+    check_frame("neural fwd unfitted", rend._frame, 1920, 1080, 0.0)
+    res["fwd_unfitted"] = dict(frame_ms=ms, mrays_s=1920 * 1080 / (
+        ms * 1e-3) / 1e6, alpha_mean=float(rend._frame.rgba[..., 3].mean()))
+    log(f"neural fwd (unfitted init_field(seed 0)) 1920x1080 diffuse: frame "
+        f"{ms:.2f} ms ({res['fwd_unfitted']['mrays_s']:.2f} Mrays/s), mean "
+        f"alpha {res['fwd_unfitted']['alpha_mean']:.3f}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2477,6 +2878,13 @@ def main() -> int:
     t_ph = time.perf_counter()
     pt_dvm = pt_dense_vs_mc()
     phase_s["pt_dense_vs_mc"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    npar = neural_parity()
+    nhead = neural_headline(big, smi)
+    neural_s = time.perf_counter() - t_ph
+    worst = max([worst] + [r["band_err"] for r in nhead["frames"].values()])
+    log(f"neural phase {neural_s:.0f} s ({time.perf_counter() - t0:.0f} s "
+        f"so far)")
     log("scene io and path tracing phases: " + ", ".join(
         f"{k} {v:.0f} s" for k, v in phase_s.items())
         + f" ({time.perf_counter() - t0:.0f} s so far)")
@@ -2518,6 +2926,14 @@ def main() -> int:
                             "(plain PyTorch, no kernel)"),
         "pt_dense_vs_mc_64": pt_dvm, "phase_seconds": phase_s,
         "card": smi}}, default=str))
+    print(json.dumps({"neural": {
+        "shape": "hash grid 12 levels x 2 features, 2^17 entries, "
+                 "resolutions 16-512; MLP 24-64-64-1 f32 (init seed 0); "
+                 "fitted to the 1024^3 bf16 bench field; 512^3 proxy; "
+                 "1920x1080, rate 1024, auto, Renderer; train step at a "
+                 "128^3 proxy",
+        "parity_24": npar, "headline": nhead, "seconds": neural_s,
+        "card": smi}}, default=str))
     keys = ("kernel_ms", "frame_ms", "mrays_s", "bound_ms", "bound_by",
             "samples", "ops_per_sample", "share_of_bound", "band_plain_ms",
             "band_kernel_ms", "band_err", "peak_bytes", "registers",
@@ -2533,6 +2949,12 @@ def main() -> int:
         "launches_with_exit_map": geo_launches,
         "launches_multi_volume": mv_launches,
         "launches_scene_io": io_res["launches"],
+        "launches_neural": nhead["launches"],
+        "launches_neural_train_step": nhead["train_step_128"][
+            "launches_per_step"],
+        "neural_proxy_diffuse": {k: nhead["frames"]["diffuse"][k] for k in (
+            "kernel_ms", "frame_ms", "bound_ms", "bound_by", "band_err",
+            "band_plain_ms", "band_kernel_ms", "share_of_bound")},
         "max_abs_err": worst,
         "ms": head["kernel_ms"],
         "plain_ms": head["band_plain_ms"],
@@ -2552,6 +2974,7 @@ def main() -> int:
         "replaces": "ovr_tpu/ops/swslice.py:660 (bf16=True)",
         "also_replaces": "ovr_tpu/ops/swslice.py:561 (bf16=True)",
         "launches": launches16,
+        "launches_neural": 0,
         "max_abs_err": worst_bf16,
         "ms": head16["kernel_ms"],
         "plain_ms": head16["band_plain_ms"],

@@ -16,9 +16,11 @@ facade with setters, `commit`, `render`, `swap` and `mapframe`;
 progressive sums. Scenes may carry surfaces (`geometries`: meshes and
 isosurfaces, which the volume composites over) and more volumes
 (`instances`, composited in depth order); `Renderer` also renders
-foveated sparse frames (`set_sparse_sampling`, `set_focus`). Features
-that later slices of the port bring raise NotImplementedError naming
-their ROADMAP item ("Queue next").
+foveated sparse frames (`set_sparse_sampling`, `set_focus`). The volume
+may be a neural field (`neural.NeuralFieldVolume`): shear-warp then
+renders a dense proxy baked from it (`neural_proxy_res`^3, the slice
+kernel's input; `bake_proxy_scene`), and the march samples the field
+exactly.
 """
 
 from __future__ import annotations
@@ -31,15 +33,16 @@ import numpy as np
 import torch
 
 from ovr_tpu_torch.core.sampling import safe_normalize, scalar
-from ovr_tpu_torch.core.scene import Camera, Scene, TransferFunction
+from ovr_tpu_torch.core.scene import (Camera, Scene, StructuredVolume,
+                                      TransferFunction)
+from ovr_tpu_torch.neural.field import is_field, volume_repr
+from ovr_tpu_torch.neural.train import bake_grid, bake_grid_host
 from ovr_tpu_torch.render import accel
 from ovr_tpu_torch.render import integrator as ig
 from ovr_tpu_torch.render import (geometry, lightgrid, multivol, pathtracer,
                                   ptdense, shearwarp, sparse)
 from ovr_tpu_torch.render.camera import (blended_flow, camera_basis,
                                          generate_rays, pixel_screen_coords)
-
-_LATER = "a later slice of the port (ROADMAP Queue next item {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +66,11 @@ class RenderConfig:
     in the final warp the image, the tap weights and the separable
     warp's row result. The TF lookup, the FD gradient, shading and
     compositing stay f32. Under grad the backward recomputes the planes
-    as the JAX package's does (`swslice._adjoint`)."""
+    as the JAX package's does (`swslice._adjoint`).
+
+    A neural-field volume plans shear-warp over its proxy lattice,
+    `neural_proxy_res` per axis (with `neural_proxy`), and marches the
+    field exactly otherwise."""
 
     width: int = 512
     height: int = 512
@@ -126,6 +133,11 @@ class RenderConfig:
             view = (dataclasses.replace(self, shading=ig.SHADING_NONE)
                     if pt_dense else self)
             camera = camera or scene.camera
+            if (eligible and not scene.instances and self.neural_proxy
+                    and is_field(scene.volume)):
+                # plan over the proxy's shape; `render` bakes it
+                scene = dataclasses.replace(
+                    scene, volume=_proxy_shim(scene.volume, self))
             sw = None
             if eligible and scene.instances and not pt_dense:
                 # one plan per volume; the screen partials composite in
@@ -167,6 +179,41 @@ class Frame:
     flow: Any = None
 
 
+@dataclasses.dataclass(frozen=True)
+class _ShimVolume:
+    """Shape-only stand-in for a neural field's proxy grid while a plan
+    resolves: a broadcast view of one zero, nothing allocated."""
+
+    grid: torch.Tensor
+    world_lo: torch.Tensor
+    world_hi: torch.Tensor
+
+
+def _proxy_shim(field, cfg: RenderConfig) -> _ShimVolume:
+    r = int(cfg.neural_proxy_res)
+    return _ShimVolume(grid=torch.zeros(()).expand(r, r, r),
+                       world_lo=field.world_lo, world_hi=field.world_hi)
+
+
+def bake_proxy_scene(scene: Scene, cfg: RenderConfig, grid=None) -> Scene:
+    """The scene with its neural field replaced by the dense proxy baked
+    from it (`neural_proxy_res`^3, `neural.train.bake_grid`: gradients
+    flow through the bake to the tables and weights); a dense volume
+    stays. Pass a baked `grid` (`Renderer.commit` caches one from
+    `bake_grid_host`) to reuse it across frames."""
+    vol = scene.volume
+    if not is_field(vol):
+        return scene
+    r = int(cfg.neural_proxy_res)
+    if grid is None:
+        grid = bake_grid(vol, (r, r, r))
+    proxy = StructuredVolume(
+        grid=grid, world_lo=vol.world_lo.to(cfg.dtype),
+        world_hi=vol.world_hi.to(cfg.dtype),
+        data_range=vol.data_range.to(cfg.dtype))
+    return dataclasses.replace(scene, volume=proxy)
+
+
 def _extra_lights(scene: Scene) -> dict:
     """scene.lights as the ShadeContext's light arrays: directional and
     sunSky lights shade like the primary (|N.L| I), point lights with
@@ -204,11 +251,10 @@ def _shade_ctx(scene: Scene, camera: Camera, cfg: RenderConfig,
 
 
 def _leaves(scene: Scene, cfg: RenderConfig):
-    vol = scene.volume
-    return (vol.grid, scene.tfn.color, scene.tfn.alpha,
+    return (volume_repr(scene.volume), scene.tfn.color, scene.tfn.alpha,
             scene.tfn.value_range,
             cfg.base_rate * torch.ones((), dtype=cfg.dtype,
-                                       device=vol.grid.device))
+                                       device=scene.device))
 
 
 def _march_cfg(cfg: RenderConfig) -> ig.MarchConfig:
@@ -232,7 +278,8 @@ def _wants_light_grid(cfg: RenderConfig) -> bool:
 
 
 def _lattice_res(scene: Scene, cfg: RenderConfig):
-    shape = scene.volume.grid.shape
+    vol = scene.volume
+    shape = (128, 128, 128) if is_field(vol) else vol.grid.shape
     cap = cfg.shadow_grid_res or min(512, max(128, max(shape) // 4))
     return lightgrid.default_resolution(shape, cap=cap)
 
@@ -240,8 +287,12 @@ def _lattice_res(scene: Scene, cfg: RenderConfig):
 def build_light_grid(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """Shadow-alpha lattice for `render(..., light_grid=...)`, by the
     dense light-axis sweep (as JAX's `build_light_grid` called outside
-    jit). Rebuild when the volume, TF or light changes."""
+    jit); a neural field's by the shadow march from every texel
+    (`_inline_light_grid`), as there. Rebuild when the volume, TF or
+    light changes."""
     vol = scene.volume
+    if is_field(vol):
+        return _inline_light_grid(scene, cfg)
     direction = safe_normalize(scene.light.direction)
     return lightgrid.build_light_grid_swept(
         _leaves(scene, cfg), direction, vol.world_lo, vol.world_hi,
@@ -256,7 +307,7 @@ def _inline_light_grid(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     vol = scene.volume
     return lightgrid.build_light_grid(
         _leaves(scene, cfg), safe_normalize(scene.light.direction),
-        vol.world_lo, vol.world_hi, _step(cfg, vol.grid.device),
+        vol.world_lo, vol.world_hi, _step(cfg, scene.device),
         _march_cfg(cfg), _lattice_res(scene, cfg))
 
 
@@ -266,19 +317,12 @@ def _volumes(scene: Scene):
                                           for i in scene.instances]
 
 
-def _unsupported(scene: Scene, cfg: RenderConfig):
-    """The first feature outside the port so far, or None."""
-    if not hasattr(scene.volume, "grid"):
-        return f"neural-field volumes arrive with {_LATER.format(7)} (neural/)"
-    return None
-
-
 def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
            frame_index: int = 0, generator: Optional[torch.Generator] = None,
            macrocells: Optional[accel.MacrocellGrid] = None,
            last_camera: Optional[Camera] = None,
            light_grid: Optional[torch.Tensor] = None,
-           pt_fields=None) -> Frame:
+           pt_fields=None, proxy_grid=None) -> Frame:
     """Render one frame, on the scene's device.
 
     `cfg` must be resolved (`cfg.resolved(scene)`); `cfg.sw` set means
@@ -291,7 +335,9 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
     skipping and, with `cfg.use_macrocells`, the march's empty-space
     skipping and the path tracer's DDA tracking.
     `pt_fields`: `ptdense.prepare`'s (sigma, J) for a dense path-traced
-    frame (built here when none is given).
+    frame (built here when none is given). `proxy_grid`: a neural
+    field's baked proxy for a shear-warp frame (baked here, with
+    `neural.train.bake_grid`, when none is given).
     `last_camera`: fills `Frame.flow`. `light_grid`: the shadow lattice
     (`build_light_grid`); when shadow shading needs one and none is
     given, it is built here by the per-point shadow march, from the
@@ -300,16 +346,15 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
 
     Differentiable: `loss.backward()` on the frame's tensors gives the
     gradients of the volume grid (floating point), the TF colour, alpha
-    and value range, the camera, the lights and a passed-in lattice.
+    and value range, the camera, the lights and a passed-in lattice, or
+    of a neural field's tables and weights (through the bake, or the
+    march).
     Under grad shear-warp's slice loop runs without early termination;
     the march needs `fast_math=False` (its while loop is forward-only)."""
     if cfg.max_steps is None:
         raise ValueError("call cfg.resolved(scene) first")
     if camera is None:
         camera = scene.camera
-    why = _unsupported(scene, cfg)
-    if why is not None:
-        raise NotImplementedError(why)
     if generator is None and (cfg.jitter_rays or cfg.spp > 1
                               or cfg.path_tracing):
         generator = torch.Generator(device=scene.device)
@@ -321,6 +366,8 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
         return pathtracer.render_frame(scene, cfg, camera,
                                        pathtracer.GeneratorDraws(generator),
                                        macrocells)
+    if cfg.sw is not None:
+        scene = bake_proxy_scene(scene, cfg, grid=proxy_grid)
     if not _wants_light_grid(cfg):
         light_grid = None
     elif light_grid is None:
@@ -526,7 +573,10 @@ class Renderer:
     W*H/8 rays chosen around the focus (`render.sparse.render_sparse`)
     and scatters them into the last frame. A dense path-traced config
     caches the scatter lattices (`_pt_fields`) until the volume, TF or
-    density scale changes. Neural volumes raise at `render()`."""
+    density scale changes. A neural field's shear-warp frames render a
+    proxy baked once (`_proxy_grid`, `bake_grid_host`); its macrocells
+    come from a min(max_resolution, 256)^3 bake. `commit` and `render`
+    run without autograd."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig()):
         self.scene = scene
@@ -538,6 +588,7 @@ class Renderer:
         self._macrocells: Optional[accel.MacrocellGrid] = None
         self._light_grid: Optional[torch.Tensor] = None
         self._pt_fields = None  # ptdense (sigma, J) cache
+        self._proxy_grid = None  # a neural field's baked proxy
         self._sparse = False
         self._focus: Optional[sparse.FocusParams] = None
         self._accumulating = False
@@ -647,26 +698,45 @@ class Renderer:
             self._dirty = True
 
     def commit(self) -> None:
+        with torch.no_grad():
+            self._commit()
+
+    def _commit(self) -> None:
         if self._dirty:
             self._cfg = dataclasses.replace(
                 self._cfg, max_steps=None, shadow_max_steps=None
             ).resolved(self.scene, self._camera)
             self._dirty = False
-        if not hasattr(self.scene.volume, "grid"):
-            raise NotImplementedError(_unsupported(self.scene, self._cfg))
+        vol = self.scene.volume
         if ((self._cfg.use_macrocells or self._cfg.path_tracing)
                 and self._macrocells is None):
+            if is_field(vol):
+                # the majorants of a bake (the vnr macrocell bake), in
+                # chunks of 4 M points: the same values in fewer launches
+                r = min(vol.grid_cfg.max_resolution, 256)
+                grid = bake_grid(vol, (r, r, r), chunk=1 << 22)
+            else:
+                grid = vol.grid
             self._macrocells = accel.build_macrocells(
-                self.scene.volume.grid, self.scene.tfn.alpha,
-                self.scene.tfn.value_range)
+                grid, self.scene.tfn.alpha, self.scene.tfn.value_range)
         if _wants_light_grid(self._cfg) and self._light_grid is None:
             self._light_grid = build_light_grid(self.scene, self._cfg)
         if (self._cfg.path_tracing and self._cfg.pt_dense
                 and self._cfg.sw is not None and self._pt_fields is None):
             self._pt_fields = ptdense.prepare(self.scene, self._cfg)
+        if (self._cfg.sw is not None and self._proxy_grid is None
+                and is_field(vol) and not self._cfg.path_tracing):
+            # baked once and reused by every frame (path-traced frames
+            # sample the field itself and need none)
+            r = int(self._cfg.neural_proxy_res)
+            self._proxy_grid = bake_grid_host(vol, (r, r, r))
 
     def render(self) -> None:
-        self.commit()
+        with torch.no_grad():
+            self._render()
+
+    def _render(self) -> None:
+        self._commit()
         self._frame_index += 1
         t0 = time.perf_counter()
         if self._sparse and not self._cfg.path_tracing:
@@ -682,7 +752,8 @@ class Renderer:
                            frame_index=self._frame_index,
                            macrocells=self._macrocells,
                            light_grid=self._light_grid,
-                           pt_fields=self._pt_fields)
+                           pt_fields=self._pt_fields,
+                           proxy_grid=self._proxy_grid)
         if self._accumulating:
             frame, self._accum = accumulate(frame, self._accum,
                                             self._frame_index)

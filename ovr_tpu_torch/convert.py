@@ -9,7 +9,10 @@ dotted attribute paths; extra lights are `lights.<i>.<field>`, geometry
 instances `geometries.<i>.{kind,xfm,material.<field>,geometry.<field>}`
 (a material without a texture has no `map_kd` key), volume instances
 `instances.<i>.{volume,tfn}.<field>` and, where placed, `.xfm`;
-`*.kind` entries hold strings.
+`*.kind` entries hold strings. A neural-field volume (any object with a
+`grid_cfg`, JAX's or the port's) is `volume.tables`,
+`volume.weights.<i>.{w,b}`, the world box and `data_range`,
+`volume.grid_cfg.<field>` and `volume.compute_dtype` (a dtype name).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from ovr_tpu_torch.core.scene import (Camera, GeometryInstance, Isosurface,
                                       Light, Material, Scene,
                                       StructuredVolume, TransferFunction,
                                       TriangleMesh, VolumeInstance)
+from ovr_tpu_torch.neural.field import NeuralFieldVolume
+from ovr_tpu_torch.neural.hashgrid import HashGridConfig
 
 _VOLUME = ("grid", "world_lo", "world_hi", "data_range")
 _TFN = ("color", "alpha", "value_range")
@@ -28,10 +33,14 @@ _CAMERA = ("from_", "at", "up", "fovy", "height")
 _LIGHT = ("direction", "color", "ambient", "position", "intensity")
 _MATERIAL = ("kd", "ks", "ns", "d")
 _MESH = ("verts", "faces", "colors", "uvs")
+_GRID_CFG = ("n_levels", "features_per_level", "log2_table_size",
+             "base_resolution", "max_resolution")
 
 
 def _count(arrays: dict, prefix: str) -> int:
-    return len({k.split(".")[1] for k in arrays
+    """How many entries `prefix.<i>` (prefix may be dotted) there are."""
+    n = len(prefix) + 1
+    return len({k[n:].split(".")[0] for k in arrays
                 if k.startswith(prefix + ".")})
 
 
@@ -66,9 +75,39 @@ def arrays_from_scene(obj) -> dict:
     return out
 
 
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _dtype_name(dt) -> str:
+    if isinstance(dt, torch.dtype):
+        return str(dt).split(".")[-1]
+    return np.dtype(dt).name
+
+
+def _field_arrays(volume, prefix: str) -> dict:
+    out = {f"{prefix}volume.tables": _np(volume.tables),
+           f"{prefix}volume.compute_dtype": np.asarray(
+               _dtype_name(volume.compute_dtype))}
+    for i, (w, b) in enumerate(volume.weights):
+        out[f"{prefix}volume.weights.{i}.w"] = _np(w)
+        out[f"{prefix}volume.weights.{i}.b"] = _np(b)
+    for f in _VOLUME[1:]:
+        out[f"{prefix}volume.{f}"] = _np(getattr(volume, f))
+    for f in _GRID_CFG:
+        out[f"{prefix}volume.grid_cfg.{f}"] = np.asarray(
+            getattr(volume.grid_cfg, f))
+    return out
+
+
 def _volume_arrays(volume, tfn, prefix: str) -> dict:
-    out = {f"{prefix}volume.{f}": np.asarray(getattr(volume, f))
-           for f in _VOLUME}
+    if hasattr(volume, "grid_cfg"):
+        out = _field_arrays(volume, prefix)
+    else:
+        out = {f"{prefix}volume.{f}": np.asarray(getattr(volume, f))
+               for f in _VOLUME}
     out.update({f"{prefix}tfn.{f}": np.asarray(getattr(tfn, f))
                 for f in _TFN})
     return out
@@ -88,12 +127,29 @@ def _light(arrays: dict, prefix: str, device) -> Light:
                         kind=str(arrays[f"{prefix}.kind"]), device=device)
 
 
+def _field(arrays: dict, prefix: str, device) -> NeuralFieldVolume:
+    pre = f"{prefix}volume."
+    weights = [(_tensor(arrays[f"{pre}weights.{i}.w"]).to(device),
+                _tensor(arrays[f"{pre}weights.{i}.b"]).to(device))
+               for i in range(_count(arrays, f"{pre}weights"))]
+    grid_cfg = HashGridConfig(**{f: int(arrays[f"{pre}grid_cfg.{f}"])
+                                 for f in _GRID_CFG})
+    return NeuralFieldVolume(
+        _tensor(arrays[f"{pre}tables"]).to(device), weights,
+        *(_tensor(arrays[f"{pre}{f}"]).to(device) for f in _VOLUME[1:]),
+        grid_cfg=grid_cfg,
+        compute_dtype=getattr(torch, str(arrays[f"{pre}compute_dtype"])))
+
+
 def _volume(arrays: dict, prefix: str, device):
-    volume = StructuredVolume(
-        grid=_tensor(arrays[f"{prefix}volume.grid"]).to(device),
-        **{f: torch.as_tensor(np.array(arrays[f"{prefix}volume.{f}"],
-                                         np.float32), device=device)
-           for f in _VOLUME[1:]})
+    if f"{prefix}volume.tables" in arrays:
+        volume = _field(arrays, prefix, device)
+    else:
+        volume = StructuredVolume(
+            grid=_tensor(arrays[f"{prefix}volume.grid"]).to(device),
+            **{f: torch.as_tensor(np.array(arrays[f"{prefix}volume.{f}"],
+                                           np.float32), device=device)
+               for f in _VOLUME[1:]})
     tfn = TransferFunction.create(
         *(arrays[f"{prefix}tfn.{f}"] for f in _TFN), device=device)
     return volume, tfn

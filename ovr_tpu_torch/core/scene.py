@@ -22,6 +22,13 @@ ORTHOGRAPHIC = "orthographic"
 _NATIVE_INT = (torch.uint8, torch.uint16)
 
 
+def volume_device(volume) -> torch.device:
+    """The device of a structured volume's grid or of a neural field's
+    tables."""
+    grid = getattr(volume, "grid", None)
+    return volume.tables.device if grid is None else grid.device
+
+
 def _f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
@@ -228,10 +235,11 @@ class Light:
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
-    """One structured volume, its transfer function, the primary light,
-    extra lights and a default camera; `geometries` (GeometryInstance)
-    are surfaces the volume composites over, `instances`
-    (VolumeInstance) more volumes beside the primary one."""
+    """One volume (structured, or a `neural.NeuralFieldVolume`), its
+    transfer function, the primary light, extra lights and a default
+    camera; `geometries` (GeometryInstance) are surfaces the volume
+    composites over, `instances` (VolumeInstance) more volumes beside
+    the primary one."""
 
     volume: StructuredVolume
     tfn: TransferFunction
@@ -247,7 +255,7 @@ class Scene:
     def create(volume, tfn, light=None, camera=None,
                volume_sampling_rate=1.0, density_scale=1.0, geometries=(),
                lights=(), instances=()) -> "Scene":
-        device = volume.grid.device
+        device = volume_device(volume)
         if light is None:
             light = Light.create(device=device)
         if camera is None:
@@ -261,7 +269,7 @@ class Scene:
 
     @property
     def device(self) -> torch.device:
-        return self.volume.grid.device
+        return volume_device(self.volume)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,7 +287,7 @@ class VolumeInstance:
     @staticmethod
     def create(volume, tfn, xfm=None) -> "VolumeInstance":
         if xfm is not None:
-            xfm = _f32(xfm, volume.grid.device)
+            xfm = _f32(xfm, volume_device(volume))
         return VolumeInstance(volume=volume, tfn=tfn, xfm=xfm)
 
 

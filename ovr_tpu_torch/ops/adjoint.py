@@ -17,7 +17,8 @@ below 1):
 these cotangents back to the step's parameters with `torch.autograd.grad`,
 so residual memory is O(1) in the step count: only the parameters and the
 final transmittance are kept. `over_scan` is the composite with this
-backward as an autograd.Function.
+backward as an autograd.Function; `march_adjoint` is the unshaded march
+expressed through it.
 
 A step is `f(params, k) -> (v (M, ...), a (...))`, values channel first
 as the slice loop's (8, Hi, Wi) output is. `params` maps names to
@@ -31,7 +32,9 @@ from typing import Callable, Optional
 
 import torch
 
-from ovr_tpu_torch.core.sampling import clip
+from ovr_tpu_torch.core.sampling import (classify, clip, intersect_box,
+                                         opacity_correction, sample_volume)
+from ovr_tpu_torch.neural.field import apply_field, is_field
 
 A_MAX = 1.0 - 1e-6  # keep 1 - a invertible in fp32
 
@@ -194,3 +197,61 @@ def _adjoint_sweep_sliced(f, n_steps, params, t_final, v_bar, t_bar,
         trans_next = trans
     return {k: (acc[k].to(v.dtype) if k in acc else None)
             for k, v in params.items()}
+
+
+def march_adjoint(org, direction, scene_leaves, ctx, cfg, step):
+    """Fixed-lattice emission-absorption march (shading 'none') through
+    `over_scan`, so its backward is the bounded-memory analytic sweep.
+    Same outputs as `integrator.march` with shading 'none' and no
+    occupancy, jitter or t_cap: premultiplied (color (N, 3), zero
+    gradient, depth (N,), alpha (N,)). `scene_leaves` = (volume,
+    color_table, alpha_table, value_range, base), the volume a dense grid
+    or a `NeuralFieldVolume`; `cfg.max_steps` steps.
+
+    Gradients reach the grid (or the field's tables and weights), the TF
+    tables and range, the rays, the box and the step."""
+    volume, color_table, alpha_table, value_range, base = scene_leaves
+    n = org.shape[0]
+    params = dict(org=org, direction=direction, color_table=color_table,
+                  alpha_table=alpha_table, value_range=value_range,
+                  base=base, world_lo=ctx.world_lo, world_hi=ctx.world_hi,
+                  step=step)
+    if is_field(volume):
+        params["tables"] = volume.tables
+        for i, (w, b) in enumerate(volume.weights):
+            params[f"w{i}"], params[f"b{i}"] = w, b
+        n_layers = len(volume.weights)
+
+        def sample(p, q):
+            pairs = [(p[f"w{i}"], p[f"b{i}"]) for i in range(n_layers)]
+            return apply_field(p["tables"], pairs, volume.grid_cfg,
+                               volume.compute_dtype, q)
+    else:
+        params["grid"] = volume
+
+        def sample(p, q):
+            return sample_volume(p["grid"], q)
+
+    def f(p, k):
+        stp = p["step"]
+        t0 = p["org"].new_zeros((n,))
+        t1 = p["org"].new_full((n,), 3.4e38)
+        t0, t1 = intersect_box(p["org"], p["direction"], p["world_lo"],
+                               p["world_hi"], t0, t1)
+        t0 = torch.maximum(t0, torch.zeros_like(t0))
+        t1 = torch.maximum(t1, t0)
+        tx = torch.minimum(t0 + k * stp, t1)
+        ty = torch.minimum(tx + stp, t1)
+        mid = 0.5 * (tx + ty)
+        pos = p["org"] + mid[..., None] * p["direction"]
+        p_obj = (pos - p["world_lo"]) / (p["world_hi"] - p["world_lo"])
+        rgb, a = classify(p["color_table"], p["alpha_table"],
+                          p["value_range"], sample(p, p_obj))
+        a = opacity_correction(a, p["base"], ty - tx)
+        a = torch.where(ty > tx, a, 0.0)
+        v = torch.cat([clip(rgb, 0.0, 1.0), mid[..., None]], dim=-1)
+        return v.T, a
+
+    big_v, trans = over_scan(f, cfg.max_steps, params)
+    color = big_v[:3].T
+    return color, torch.zeros_like(color), big_v[3], 1.0 - trans

@@ -33,7 +33,9 @@ import torch
 
 from ovr_tpu_torch.core.sampling import (clip, gradient_of, intersect_box,
                                          normalize_value, safe_normalize,
-                                         sample_volume, scalar)
+                                         scalar)
+from ovr_tpu_torch.neural.field import (sample_any_volume, volume_rdim,
+                                        volume_repr)
 
 BIG = 3.4e38
 # (ray, triangle) pairs per block of the mesh intersection
@@ -186,12 +188,13 @@ def sample_texture(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
             + (t10 * (1 - ax) + t11 * ax) * ay)
 
 
-def intersect_isosurface(grid: torch.Tensor, value_range: torch.Tensor,
+def intersect_isosurface(grid, value_range: torch.Tensor,
                          world_lo, world_hi, org, direction, iso,
                          steps: int):
     """First crossing of any of `iso.isovalues` (normalized TF units)
-    along each ray: `steps` fixed steps across the box, one secant step
-    in the bracketing interval. Returns (t (N,) with BIG on a miss,
+    along each ray through `grid` (a dense grid or a neural field):
+    `steps` fixed steps across the box, one secant step in the
+    bracketing interval. Returns (t (N,) with BIG on a miss,
     normal (N, 3) from the negated volume gradient, facing the ray
     origin)."""
     n = org.shape[0]
@@ -204,7 +207,7 @@ def intersect_isosurface(grid: torch.Tensor, value_range: torch.Tensor,
 
     def field(t):
         p = org + t[:, None] * direction
-        return normalize_value(sample_volume(
+        return normalize_value(sample_any_volume(
             grid, (p - world_lo) / (world_hi - world_lo)), value_range)
 
     t_hit = org.new_full((n,), BIG)
@@ -230,11 +233,9 @@ def intersect_isosurface(grid: torch.Tensor, value_range: torch.Tensor,
     p = org + torch.minimum(t_hit, scalar(1e30, t_hit.dtype,
                                           t_hit.device))[:, None] * direction
     p_obj = clip((p - world_lo) / (world_hi - world_lo), 0.0, 1.0)
-    s = sample_volume(grid, p_obj)
-    z, y, x = grid.shape
-    rdim = torch.tensor([1.0 / x, 1.0 / y, 1.0 / z], dtype=org.dtype,
-                        device=org.device)
-    g = gradient_of(lambda q: sample_volume(grid, q), p_obj, s, rdim)
+    s = sample_any_volume(grid, p_obj)
+    rdim = volume_rdim(grid, org.dtype, org.device)
+    g = gradient_of(lambda q: sample_any_volume(grid, q), p_obj, s, rdim)
     nrm = safe_normalize(-g / (world_hi - world_lo))
     nrm = torch.where((_dot(nrm, direction) > 0)[:, None], -nrm, nrm)
     return t_hit, nrm
@@ -269,8 +270,8 @@ def render_geometries(scene, org: torch.Tensor, direction: torch.Tensor,
         org_o, dir_o, inv = _rays_to_object(inst.xfm, org, direction)
         if inst.kind == "isosurface":
             t, nrm_o = intersect_isosurface(
-                vol.grid, scene.tfn.value_range, vol.world_lo, vol.world_hi,
-                org_o, dir_o, inst.geometry, iso_steps)
+                volume_repr(vol), scene.tfn.value_range, vol.world_lo,
+                vol.world_hi, org_o, dir_o, inst.geometry, iso_steps)
             base = org.new_ones((n, 3))
         else:
             t, nrm_o, base, uv = intersect_mesh(org_o, dir_o, inst.geometry,

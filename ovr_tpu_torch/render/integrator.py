@@ -39,10 +39,11 @@ from typing import Any
 
 import torch
 
-from ovr_tpu_torch.core.sampling import (axis_constants, classify, clip,
-                                         fd_points, intersect_box,
-                                         opacity_correction, safe_normalize,
-                                         sample_volume, scalar)
+from ovr_tpu_torch.core.sampling import (classify, clip, fd_points,
+                                         intersect_box, opacity_correction,
+                                         safe_normalize, sample_volume,
+                                         scalar)
+from ovr_tpu_torch.neural.field import sample_any_volume, volume_rdim
 
 SHADING_NONE = "none"
 SHADING_DIFFUSE = "diffuse"  # gradient shading, no shadow
@@ -52,12 +53,6 @@ SHADING_SSH = "ssh"  # single-shade heuristic (march only)
 EARLY_EXIT_ALPHA = 0.9999
 CHECK_EVERY = 16  # march_while: steps between "any ray active?" reads
 STEPS = 0  # steps run by march / march_while (a diagnostic counter)
-
-
-def _vol_rdim(grid: torch.Tensor, dtype) -> torch.Tensor:
-    """Gradient step: one voxel per axis, (1/X, 1/Y, 1/Z)."""
-    zd, yd, xd = grid.shape
-    return axis_constants(xd, yd, zd, dtype, grid.device)[2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +96,7 @@ def _shadow_alpha(grid, color_table, alpha_table, value_range, base,
         active = (ty > tx) & (alpha < EARLY_EXIT_ALPHA)
         mid = 0.5 * (tx + ty)
         p = pos + mid[..., None] * light_dir
-        s = sample_volume(grid, _to_object(p, world_lo, world_hi))
+        s = sample_any_volume(grid, _to_object(p, world_lo, world_hi))
         _, a = classify(color_table, alpha_table, value_range, s)
         a = opacity_correction(a, base, ty - tx)
         alpha = torch.where(active, alpha + (1.0 - alpha) * a, alpha)
@@ -159,14 +154,15 @@ def _march_step(carry, scene_leaves, ctx: ShadeContext, cfg: MarchConfig,
 
     if cfg.shading != SHADING_NONE:
         # the sample and its three forward-difference probes in one fetch
-        stp, pts = fd_points(p_obj, _vol_rdim(grid, p_obj.dtype),
+        stp, pts = fd_points(p_obj,
+                             volume_rdim(grid, p_obj.dtype, p_obj.device),
                              1.0 if ctx.grad_hi is None else ctx.grad_hi,
                              center=True)
-        vals = sample_volume(grid, pts)
+        vals = sample_any_volume(grid, pts)
         s = vals[..., 0]
         g = (vals[..., 1:] - s[..., None]) / stp
     else:
-        s = sample_volume(grid, p_obj)
+        s = sample_any_volume(grid, p_obj)
     rgb, a = classify(color_table, alpha_table, value_range, s)
     a = opacity_correction(a, base, ty - tx)
 
@@ -281,7 +277,7 @@ def _ssh_deferred_shade(color, alpha, pk_w, pk_t, org, direction,
     grid, color_table, alpha_table, value_range, base = scene_leaves
     pos = org + pk_t[..., None] * direction
     p_obj = _to_object(pos, ctx.world_lo, ctx.world_hi)
-    s = sample_volume(grid, p_obj)
+    s = sample_any_volume(grid, p_obj)
     rgb, _ = classify(color_table, alpha_table, value_range, s)
     if ctx.light_alpha is not None:
         sh_a = sample_volume(ctx.light_alpha, p_obj)
@@ -334,7 +330,9 @@ def march(org, direction, scene_leaves, ctx: ShadeContext, cfg: MarchConfig,
     premultiplied (color, gradient, depth, alpha) (see `finalize`).
 
     `org`/`direction`: (N, 3) world-space rays. `scene_leaves` = (grid,
-    color_table, alpha_table, value_range, base). `step`: the world step
+    color_table, alpha_table, value_range, base), the grid dense or a
+    `NeuralFieldVolume` (sampled through `sample_any_volume`; its
+    gradient step is one finest-level cell). `step`: the world step
     (1 / sampling_rate). `occupancy`: a `MacrocellGrid` for empty-space
     skipping (its majorants are a control input: no gradient reaches
     them). `jitter`: optional (N,) in [0,1), times `step` added to t0.

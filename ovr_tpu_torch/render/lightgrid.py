@@ -19,6 +19,7 @@ import torch
 
 from ovr_tpu_torch.core.sampling import (classify, opacity_correction,
                                          storage_scale)
+from ovr_tpu_torch.neural.field import is_field
 from ovr_tpu_torch.render import integrator as ig
 
 
@@ -56,12 +57,21 @@ def _hat(pos: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def build_light_grid_swept(scene_leaves, light_dir, world_lo, world_hi,
-                           res: tuple[int, int, int]) -> torch.Tensor:
+                           res: tuple[int, int, int],
+                           cfg: ig.MarchConfig = ig.MarchConfig(max_steps=1)
+                           ) -> torch.Tensor:
     """Shadow-alpha lattice (res_z, res_y, res_x) for a dense grid.
 
     `scene_leaves` = (grid, color_table, alpha_table, value_range, base);
-    `light_dir` points toward the light."""
+    `light_dir` points toward the light. A neural field has no planes to
+    sweep: it gets `build_light_grid` at step 0.01 with `cfg`'s shadow
+    march, as in the JAX package."""
     grid, color_table, alpha_table, value_range, base = scene_leaves
+    if is_field(grid):
+        step = torch.tensor(0.01, dtype=world_lo.dtype,
+                            device=world_lo.device)
+        return build_light_grid(scene_leaves, light_dir, world_lo, world_hi,
+                                step, cfg, res)
     ld = light_dir.detach().cpu().numpy().astype(np.float64)
     ld = ld / max(np.linalg.norm(ld), 1e-30)
     axis = int(np.argmax(np.abs(ld)))

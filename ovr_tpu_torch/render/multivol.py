@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from ovr_tpu_torch.core.sampling import intersect_box, safe_normalize
+from ovr_tpu_torch.neural.field import volume_repr
 from ovr_tpu_torch.render import integrator as ig
 from ovr_tpu_torch.render.geometry import _rays_to_object, xfm_apply
 
@@ -38,9 +39,9 @@ def _march_one(org, direction, vol, tfn, ctx_base, cfg, mcfg, step,
     world -> object with the direction unnormalized (t, steps and depth
     stay in world units), and the light directions, point lights and the
     world-to-camera rows go into object space with them."""
-    leaves = (vol.grid, tfn.color, tfn.alpha, tfn.value_range,
+    leaves = (volume_repr(vol), tfn.color, tfn.alpha, tfn.value_range,
               cfg.base_rate * torch.ones((), dtype=cfg.dtype,
-                                         device=vol.grid.device))
+                                         device=vol.world_lo.device))
     ctx = dataclasses.replace(ctx_base, world_lo=vol.world_lo,
                               world_hi=vol.world_hi, light_alpha=None)
     if xfm is not None:

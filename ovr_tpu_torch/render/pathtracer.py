@@ -47,7 +47,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ovr_tpu_torch.core.sampling import classify, intersect_box, sample_volume
+from ovr_tpu_torch.core.sampling import classify, intersect_box
+from ovr_tpu_torch.neural.field import sample_any_volume, volume_repr
 from ovr_tpu_torch.render.accel import MacrocellGrid
 from ovr_tpu_torch.render.camera import generate_rays, pixel_screen_coords
 
@@ -109,7 +110,7 @@ def _sample_alpha(leaves, world_lo, world_hi, pos):
     grid, color_table, alpha_table, value_range, _ = leaves
     p_obj = (pos - world_lo) / (world_hi - world_lo)
     return classify(color_table, alpha_table, value_range,
-                    sample_volume(grid, p_obj))
+                    sample_any_volume(grid, p_obj))
 
 
 def _track(step, org, direction, t0, t1, state0, draws: Draws,
@@ -299,7 +300,7 @@ def render_frame(scene, cfg, camera, draws: Draws, macrocells=None):
     screen = pixel_screen_coords(cfg.width, cfg.height, dt, dev)
     screen = screen.reshape(-1, 2)
     n = screen.shape[0]
-    leaves = (scene.volume.grid, scene.tfn.color, scene.tfn.alpha,
+    leaves = (volume_repr(scene.volume), scene.tfn.color, scene.tfn.alpha,
               scene.tfn.value_range, scene.density_scale)
     lo = scene.volume.world_lo
     hi = scene.volume.world_hi

@@ -41,7 +41,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ovr_tpu_torch.core.sampling import classify, sample_volume
+from ovr_tpu_torch.core.sampling import classify
+from ovr_tpu_torch.neural.field import (is_field, sample_any_volume,
+                                        volume_repr)
 
 # 14-direction quadrature: 6 axial + 8 diagonals, equal weights (keeps
 # the quadrature mean isotropic; within the method's lattice bias).
@@ -75,14 +77,14 @@ def build_lattices(leaves, res: tuple[int, int, int]):
     330-334, 520). u8/u16 grids sample through their storage scale."""
     grid, color_table, alpha_table, value_range, density_scale = leaves
     d, h, w = res
-    opts = dict(dtype=torch.float32, device=grid.device)
+    opts = dict(dtype=torch.float32, device=color_table.device)
     zs = (torch.arange(d, **opts) + 0.5) / d
     ys = (torch.arange(h, **opts) + 0.5) / h
     xs = (torch.arange(w, **opts) + 0.5) / w
     pz, py, px = torch.meshgrid(zs, ys, xs, indexing="ij")
     p = torch.stack([px, py, pz], -1).reshape(-1, 3)
     rgb, a = classify(color_table, alpha_table, value_range,
-                      sample_volume(grid, p))
+                      sample_any_volume(grid, p))
     sigma = (a * density_scale).reshape(d, h, w)
     return sigma, rgb.reshape(d, h, w, 3)
 
@@ -195,11 +197,13 @@ def solve_scatter(sigma, albedo, ambient, spacing, cfg: PTDenseConfig):
 def prepare(scene, cfg):
     """Build (sigma, J) for the scene — camera-independent; rebuild when
     the volume, TF, density scale, or ambient changes. The lattice is
-    min(grid, cfg.pt_lattice) per axis; max_scatters // 2 levels."""
+    min(grid, cfg.pt_lattice) per axis (a neural field counts as
+    128^3); max_scatters // 2 levels."""
     vol = scene.volume
-    leaves = (vol.grid, scene.tfn.color, scene.tfn.alpha,
+    leaves = (volume_repr(vol), scene.tfn.color, scene.tfn.alpha,
               scene.tfn.value_range, scene.density_scale)
-    res = tuple(min(int(s), cfg.pt_lattice) for s in vol.grid.shape)
+    shape = (128, 128, 128) if is_field(vol) else vol.grid.shape
+    res = tuple(min(int(s), cfg.pt_lattice) for s in shape)
     sigma, albedo = build_lattices(leaves, res)
     ext = vol.world_hi - vol.world_lo
     spacing = torch.stack([ext[i] / res[2 - i] for i in (0, 1, 2)])

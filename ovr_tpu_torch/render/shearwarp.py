@@ -34,6 +34,7 @@ import torch
 from ovr_tpu_torch.core.sampling import (clip, intersect_box, safe_normalize,
                                          scalar)
 from ovr_tpu_torch.core.scene import ORTHOGRAPHIC
+from ovr_tpu_torch.neural.field import is_field
 from ovr_tpu_torch.ops import adjoint, swslice
 from ovr_tpu_torch.render import geometry
 from ovr_tpu_torch.render.ptdense import full_f32
@@ -376,7 +377,9 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         raise ValueError("cfg.sw unresolved; call cfg.resolved(scene)")
     dt = cfg.dtype
     vol = scene.volume
-    dev = vol.grid.device
+    # a path-traced neural field has no grid; its planes sample sigma
+    src = pt_fields[0] if is_field(vol) else vol.grid
+    dev = src.device
     axis, sign = sw.axis, sw.sign
     w1, w2 = _perp_axes(axis)
     ortho = camera.kind == ORTHOGRAPHIC
@@ -384,9 +387,9 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
 
     # the slice loop reads a storage-ordered view and walks it backward
     # when sign < 0 (no flipped copy of the volume)
-    grid = _volume_view(vol.grid, axis, 1)
+    grid = _volume_view(src, axis, 1)
     maj_v = None
-    zyx = vol.grid.shape
+    zyx = src.shape
     if (macrocells is not None and cfg.sw_skip
             and tuple(macrocells.vol_dims) == (zyx[2], zyx[1], zyx[0])):
         # a control input: no cotangent flows into the majorants

@@ -3,9 +3,9 @@
 Sampling math, camera basis, finalize, macrocells, the swept shadow
 lattice, the shear-warp plan and scene conversion are fed the same numpy
 inputs in both packages. Also the port's own contract: it never imports
-JAX or `ovr_tpu`, its entry points default to the card, features not yet
-ported raise NotImplementedError, and those that raised until they were
-ported render and match the JAX package.
+JAX or `ovr_tpu`, its entry points default to the card, and features
+that raised NotImplementedError until they were ported render and match
+the JAX package (neural fields: tests/test_torch_neural.py).
 """
 
 import dataclasses
@@ -306,18 +306,6 @@ def test_entry_points_default_to_the_card():
 def _tiny_scene(**kw):
     scene = simple_scene(smooth_grid(16), device="cpu")
     return dataclasses.replace(scene, **kw)
-
-
-@pytest.mark.parametrize("what", ["neural"])
-def test_unsupported_features_raise(what):
-    """A neural-field volume (the next slice) raises. Path tracing raised
-    until it was ported: tests/test_torch_pathtracer.py."""
-    scene = dataclasses.replace(_tiny_scene(), volume=object())
-    kw = dict(width=16, height=16, sampling_rate=8.0, shading="none",
-              method="auto")
-    cfg = api.RenderConfig(**kw).resolved(_tiny_scene())
-    with pytest.raises(NotImplementedError, match="slice"):
-        api.render(scene, cfg)
 
 
 @pytest.mark.parametrize("what", ["point_light", "five_lights", "sw_bf16"])

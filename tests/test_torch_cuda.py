@@ -567,3 +567,59 @@ def test_scene_file_loads_onto_card():
                                frames[1].rgba.numpy(), atol=1e-4)
     np.testing.assert_allclose(frames[0].depth.cpu().numpy(),
                                frames[1].depth.numpy(), atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,shading", [("auto", "none"),
+                                            ("auto", "diffuse"),
+                                            ("auto", "shadow"),
+                                            ("march", "diffuse")])
+def test_neural_field_renders_on_card_matches_cpu(method, shading):
+    """A neural field on the card against the same field on the CPU: a
+    24^3 proxy frame (one slice-kernel launch) or the exact field
+    march, rgba 1e-4, depth 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import neural_small_scene
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames = []
+    for device in ("cuda", "cpu"):
+        scene = neural_small_scene(device)
+        cfg = api.RenderConfig(width=32, height=24, sampling_rate=24.0,
+                               method=method, shading=shading,
+                               neural_proxy_res=24).resolved(scene)
+        before = swslice.LAUNCHES
+        with torch.no_grad():
+            frames.append(api.render(scene, cfg))
+        assert swslice.LAUNCHES == before + (
+            device == "cuda" and method == "auto")
+    card, cpu = frames
+    assert float(cpu.rgba[..., 3].max()) > 0.1
+    np.testing.assert_allclose(card.rgba.cpu().numpy(), cpu.rgba.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(card.depth.cpu().numpy(), cpu.depth.numpy(),
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_neural_train_step_on_card_matches_cpu():
+    """The inverse-rendering step's gradients of the tables and weights
+    on the card within 1e-3 of the CPU's largest element (the tables'
+    cotangent is a scatter-add: the summation order differs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import neural_small_scene
+    from ovr_tpu_torch.neural import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grads = []
+    for device in ("cuda", "cpu"):
+        scene = neural_small_scene(device)
+        cfg = api.RenderConfig(width=32, height=24, sampling_rate=24.0,
+                               method="auto", shading="diffuse",
+                               neural_proxy_res=24).resolved(scene)
+        step, state = train.make_image_train_step(scene, cfg)
+        step(state, scene.camera, torch.zeros((24, 32, 4), device=device))
+        grads.append([q.grad.cpu() for q in scene.volume.parameters()])
+    for c, h in zip(*grads):
+        scale = float(h.abs().max())
+        assert float((c - h).abs().max()) <= 1e-3 * scale
