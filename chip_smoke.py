@@ -91,10 +91,33 @@
    frames' inputs and times it alone, takes one inverse-rendering step
    at a 128^3 proxy, holds the proxy frame against the exact field
    march (480x270: mean |rgba| < 0.05) and renders the unfitted field;
-9. prints one JSON line each of backward, march, surfaces, scene-file
-   and path-tracing, neural and kernel measurements (the kernel line
-   with an entry for the f32 function and one for its bf16 variant),
-   then, last, the device line {"ok": true, "device": {...}}.
+9. drives the multi-device paths (`ovr_tpu_torch.parallel`), right
+   after step 3: (a) holds the slice kernel against its plain version on
+   the inputs of bricks (B = 2, 4: a slab's sample box, its ownership
+   clip box and its share of the planes; ascending, descending and
+   transverse views) and bands (2, 4 row bands, each its own fan) at
+   64^3 and 256^3, f32/bf16/u8, modes 0/1/2, the counting variant too;
+   (b) over NCCL with one rank, renders the headline frame (1920x1080,
+   rate 1024, none/diffuse/shadow) through `tiles.render_sharded` and a
+   1 x 1 `bricks.render_bricked`, which must give `api.render`'s bits;
+   (c) starts 4 gloo ranks that share the card (this script with
+   `--rank`; gloo moves the CUDA tensors through host copies, NCCL
+   refuses two ranks on one device), each building its own volume on
+   the card (a brick rank only its slab), and renders that frame bricked
+   1 x 2 (against the unbricked frame: 1e-3 unshaded, 3e-2 shaded), as
+   tiles x bricks 2 x 2 and as tiles 2 x 1 (JAX's banded rule: interior
+   p95 < 0.06), each rank printing its launches per frame (one), frame
+   and kernel ms (time-shared), the kernel's bound and its peak and
+   resident memory, with the kernel held against its plain version on a
+   band of one brick's inputs; (d) takes the tiles train step at the
+   headline (2 ranks; its loss against its forward frame's, the state
+   alike on both ranks) and the tiles step at 64^3 and the bricked step
+   at 128^3 on the card and on the same ranks' CPUs (1e-3 of the largest
+   element);
+10. prints one JSON line each of backward, march, surfaces, scene-file
+   and path-tracing, parallel, neural and kernel measurements (the
+   kernel line with an entry for the f32 function and one for its bf16
+   variant), then, last, the device line {"ok": true, "device": {...}}.
 
 Exits non-zero without a CUDA device, without the repository beside it,
 or when any phase fails. Imports neither JAX nor the JAX package.
@@ -164,12 +187,15 @@ def log(*a):
     print(*a, flush=True)
 
 
-def field(n, kind, device):
+def field(n, kind, device, z_rows=None):
     """bench.py's synthetic volume ("bench"), or a blob in one octant
-    ("sparse"), as f32 on the device."""
+    ("sparse"), as f32 on the device; `z_rows` (an index tensor) keeps
+    those Z rows only, computed alone (a brick's slab)."""
     import torch
     ax = torch.linspace(0, 1, n, dtype=torch.float32, device=device)
     x, y, z = ax[None, None, :], ax[None, :, None], ax[:, None, None]
+    if z_rows is not None:
+        z = z[z_rows.to(device)]
     if kind == "sparse":
         return torch.exp(-((x - 0.7) ** 2 + (y - 0.3) ** 2
                            + (z - 0.6) ** 2) * 120)
@@ -231,13 +257,11 @@ def rig_scene(grid, cam):
                      device=dev)))
 
 
-def capture(scene, cfg, **render_kw):
-    """Render one frame and return the arguments the renderer passed to
-    the slice kernel's wrapper."""
-    from ovr_tpu_torch import api
+def capture_call(fn):
+    """Call `fn` (a frame) and return the arguments it passed to the slice
+    kernel's wrapper (the last call)."""
     from ovr_tpu_torch.ops import swslice
-    seen = {}
-    orig = swslice.slice_composite
+    seen, orig = {}, swslice.slice_composite
 
     def spy(*args, **kw):
         seen.update(args=args, kw=kw)
@@ -245,10 +269,17 @@ def capture(scene, cfg, **render_kw):
 
     swslice.slice_composite = spy
     try:
-        api.render(scene, cfg, **render_kw)
+        fn()
     finally:
         swslice.slice_composite = orig
     return seen["args"], seen["kw"]
+
+
+def capture(scene, cfg, **render_kw):
+    """Render one frame and return the arguments the renderer passed to
+    the slice kernel's wrapper."""
+    from ovr_tpu_torch import api
+    return capture_call(lambda: api.render(scene, cfg, **render_kw))
 
 
 def cuda_ms(fn, reps):
@@ -2775,6 +2806,582 @@ def neural_headline(grid, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the multi-device paths (ovr_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+PAR_N = 1024  # the headline volume's edge (ranks build it, or a slab)
+PAR_SHADINGS = ("none", "diffuse", "shadow")
+PAR_FRAMES = 3  # timed frames per rank and shading (after one warm-up)
+PAR_WORLD = 4  # ranks of the job that shares the card
+PAR_TIMEOUT = 420.0  # wall limit of that job (seconds)
+PAR_GROUP_TIMEOUT = 240.0  # seconds a collective may wait
+# the meshes of the job's frames, in this order: bricks first, so that a
+# brick rank's peak memory is read before it ever holds the whole grid
+PAR_MESHES = (("bricks 1x2", (1, 2)), ("tiles x bricks 2x2", (2, 2)),
+              ("tiles 2x1", (2, 1)))
+# kernel against plain version on brick and band inputs: (n, dtype,
+# shading, camera, fd, term, (n_tiles, tile), (n_bricks, brick), width,
+# height); "persp" views the brick axis ascending, "back" descending,
+# "side" across it (principal axis x)
+HOOK_CASES = [
+    (64, "f32", "none", "persp", True, False, (1, 0), (2, 1), 160, 96),
+    (64, "bf16", "diffuse", "back", True, True, (1, 0), (4, 2), 160, 96),
+    (64, "u8", "shadow", "side", True, False, (1, 0), (4, 0), 160, 96),
+    (64, "f32", "shadow", "persp", False, False, (4, 3), (1, 0), 160, 96),
+    (256, "f32", "diffuse", "persp", True, False, (4, 1), (1, 0), 240, 136),
+    (256, "bf16", "shadow", "back", True, False, (2, 1), (1, 0), 240, 136),
+    (256, "u8", "none", "side", True, True, (1, 0), (2, 1), 240, 136),
+    (256, "bf16", "diffuse", "persp", False, False, (2, 0), (4, 3), 240, 136),
+    (256, "f32", "diffuse", "side", True, False, (2, 1), (2, 0), 240, 136),
+]
+
+
+def par_cfg(scene, shading, width=1920, height=1080, rate=1024.0):
+    """The parallel phase's frame: no macrocells (the multi-device paths
+    pass none), planes aligned to 2 bricks."""
+    from ovr_tpu_torch import api
+    cfg = api.RenderConfig(width=width, height=height, sampling_rate=rate,
+                           shading=shading, method="auto",
+                           sw_slice_align=2).resolved(scene)
+    if cfg.sw is None:
+        raise SystemExit(f"{shading}: no shear-warp plan")
+    return cfg
+
+
+def hook_capture(scene, cfg, tiles_, bricks_, light_grid=None):
+    """The slice kernel's inputs on one band (`tiles_` = (n_tiles, tile))
+    of one brick (`bricks_` = (n_bricks, brick)) of a frame, as the
+    multi-device paths call `render_shearwarp` with its hooks."""
+    from ovr_tpu_torch.parallel import bricks, tiles
+    from ovr_tpu_torch.render import shearwarp
+    (n_t, t), (n_b, b) = tiles_, bricks_
+    cfg = tiles.band_cfg(cfg, n_t)
+    hb = cfg.height // n_t
+    hooks = dict(row0=t * hb, n_rows=hb)
+    if n_b > 1:
+        local = bricks.brick_volume(scene.volume, n_b, only=b)
+        hooks.update(bricks.brick_hooks(cfg.sw, local, n_b))
+        scene = dataclasses.replace(scene, volume=dataclasses.replace(
+            scene.volume, grid=local.bricks[0]))
+    return capture_call(lambda: shearwarp.render_shearwarp(
+        scene, cfg, scene.camera, light_grid=light_grid, fan_only=True,
+        **hooks))
+
+
+def hook_parity(grids):
+    """(a) The kernel against its plain version on brick and band inputs
+    (HOOK_CASES): the bricks' sample and clip boxes and plane ranges and
+    the bands' shrunk fans reach the kernel only through its scalars.
+    The counting variant must give the same bits and counts. Returns the
+    largest difference and how many cases were bit-identical."""
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    worst, same_bits = 0.0, 0
+    for (n, dt, shading, cam, fd, term, tl, br, w, h) in HOOK_CASES:
+        scene = make_scene(grids[(n, dt, "bench")], "bench", cam)
+        cfg = api.RenderConfig(width=w, height=h, sampling_rate=float(n),
+                               shading=shading, method="shearwarp",
+                               sw_term=term, sw_slice_align=4).resolved(scene)
+        cfg = dataclasses.replace(cfg, sw=dataclasses.replace(
+            cfg.sw, fd_grad=fd))
+        lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
+              else None)
+        args, kw = hook_capture(scene, cfg, tl, br, lg)
+        name = (f"{n}^3 {dt} {shading} {cam} {w}x{h} band {tl[1]} of "
+                f"{tl[0]}, brick {br[1]} of {br[0]}")
+        n0 = swslice.LAUNCHES
+        out = swslice.slice_composite(*args, **kw)
+        torch.cuda.synchronize()
+        if swslice.LAUNCHES != n0 + 1:
+            raise SystemExit(f"{name}: slice_composite did not launch")
+        cnt, _ = counted(args, kw, out)
+        cnt_p = counts(args)
+        ref = swslice.slice_composite_plain(*args, **kw, **cnt_p)
+        err_c, err_a, err_d, ok = compare(out, ref, term)
+        same = all(torch.equal(cnt[k], cnt_p[k]) for k in cnt)
+        bits = torch.equal(out, ref)
+        same_bits += int(bits)
+        worst = max(worst, err_c, err_a, err_d)
+        alpha_max = float(ref[7].max())
+        sc = args[2]
+        log(f"parity hooks {name} fd={fd:d} term={term:d}: fan "
+            f"{args[4].shape[0]}x{args[3].shape[0]}, {args[6]} planes from "
+            f"plane {float(sc[swslice.S_OFF]) - 0.5:.0f}, smp0 "
+            f"{float(sc[swslice.S_SMP0]):.5f}"
+            f", clip z [{float(sc[swslice.S_CLA]):.4f}, "
+            f"{float(sc[swslice.S_CHA]):.4f}]: rgb/n {err_c:.2e} alpha "
+            f"{err_a:.2e} depth {err_d:.2e}{' (bit-identical)' if bits else ''}"
+            f" (max alpha {alpha_max:.3f}); counts "
+            f"{'equal' if same else 'DIFFER'} {'ok' if ok and same else 'FAIL'}")
+        if not ok or not same or alpha_max < 0.05:
+            raise SystemExit(f"kernel disagrees with the plain version on "
+                             f"the hooks' inputs, or nothing is in view: "
+                             f"{name}")
+    return worst, same_bits
+
+
+def nccl_one_rank(grid):
+    """(b) One rank over NCCL on the card: `tiles.render_sharded` and a
+    1 x 1 `bricks.render_bricked` of the headline frame must give the bits
+    of `api.render`'s, each with one kernel launch and no plain call."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.parallel import bricks, multihost, tiles
+    from ovr_tpu_torch.parallel.mesh import make_mesh
+    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0,
+                         backend="nccl", timeout=PAR_GROUP_TIMEOUT)
+    out = {}
+    try:
+        mesh = make_mesh(1, 1, device="cuda", timeout=PAR_GROUP_TIMEOUT)
+        probe = torch.ones(4, device="cuda")
+        dist.all_reduce(probe)  # the backend moves a CUDA tensor
+        if not torch.equal(probe, torch.ones_like(probe)):
+            raise SystemExit("nccl all_reduce over one rank changed a value")
+        scene = make_scene(grid, "bench", "persp")
+        bv = bricks.brick_volume(scene.volume, 1)
+        for shading in PAR_SHADINGS:
+            cfg = par_cfg(scene, shading)
+            lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
+                  else None)
+            want = api.render(scene, cfg, light_grid=lg).rgba
+            swslice.LAUNCHES = 0
+            with PlainCalls() as plain:
+                band_t = tiles.render_sharded(scene, cfg, mesh,
+                                              light_grid=lg)
+                band_b = bricks.render_bricked(scene, bv, cfg, mesh,
+                                               light_grid=lg)
+                img = multihost.gather_frame(band_t, mesh)
+                torch.cuda.synchronize()
+            r = dict(tiles_bits=bool(torch.equal(band_t, want)),
+                     bricks_bits=bool(torch.equal(band_b, want)),
+                     gathered_bits=bool(np.array_equal(
+                         img, want.cpu().numpy())),
+                     launches=swslice.LAUNCHES, plain_calls=plain.n,
+                     transport=mesh.transport)
+            out[shading] = r
+            ok = (r["tiles_bits"] and r["bricks_bits"] and r["gathered_bits"]
+                  and r["launches"] == 2 and r["plain_calls"] == 0)
+            log(f"parallel one rank, {mesh.transport}, {shading}: tiles 1x1 "
+                f"{'=' if r['tiles_bits'] else '!='} api.render bits, bricks "
+                f"1x1 {'=' if r['bricks_bits'] else '!='}, gathered "
+                f"{'=' if r['gathered_bits'] else '!='}; {r['launches']} "
+                f"launches for 2 frames, {plain.n} plain calls "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("the one-rank NCCL frames are not "
+                                 "api.render's")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def premult_p95(out, ref):
+    """tests/test_parallel.py's rule for banded frames: the 95th
+    percentile of the largest premultiplied rgb difference over the
+    frame's interior (the box of alpha > 0.01, shrunk by 2 pixels)."""
+    import numpy as np
+    pm_o, pm_r = out[..., :3] * out[..., 3:4], ref[..., :3] * ref[..., 3:4]
+    a = ref[..., 3]
+    ys, xs = np.nonzero(a > 0.01)
+    inner = np.zeros_like(a, bool)
+    inner[ys.min() + 2:ys.max() - 1, xs.min() + 2:xs.max() - 1] = True
+    return float(np.quantile(np.abs(pm_o - pm_r).max(-1)[inner], 0.95))
+
+
+def field_slab(n, rows, device, dtype, chunk=16):
+    """The bench field's Z `rows` (all when None) in `dtype`, computed
+    `chunk` rows at a time into one tensor: no f32 copy of the whole
+    slab."""
+    import torch
+    if rows is None:
+        rows = torch.arange(n)
+    out = torch.empty((len(rows), n, n), dtype=dtype, device=device)
+    for i in range(0, len(rows), chunk):
+        out[i:i + chunk] = field(n, "bench", device,
+                                 z_rows=rows[i:i + chunk]).to(dtype)
+    return out
+
+
+def rank_scene(n, rows, vr, device, dtype):
+    """The bench scene on this rank: the whole field, or its Z `rows`
+    (a brick's slab), with the whole field's TF value range."""
+    import torch
+    from ovr_tpu_torch.core.scene import Camera, simple_scene
+    grid = field_slab(n, rows, device, dtype)
+    scene = simple_scene(grid, value_range=torch.tensor(vr), device=device)
+    return dataclasses.replace(scene, camera=Camera.create(
+        **CAMERAS["persp"], device=device))
+
+
+def shape_only(scene, n):
+    """The scene with a stand-in n^3 grid (no memory): plans resolve over
+    the global grid's shape."""
+    import torch
+    g = torch.zeros((), dtype=scene.volume.grid.dtype,
+                    device=scene.volume.grid.device).expand(n, n, n)
+    return dataclasses.replace(scene, volume=dataclasses.replace(
+        scene.volume, grid=g))
+
+
+def rank_frames(out_dir, smi):
+    """(c) On each mesh of PAR_MESHES (this rank idle outside it): its
+    volume (the slab, or the whole grid for tiles), one warm-up and
+    PAR_FRAMES timed frames per shading with the launches counted, the
+    kernel alone on this rank's inputs and its bound, the peak memory;
+    the frame gathered and written for the parent by rank 0."""
+    import numpy as np
+    import torch
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.parallel import bricks, multihost, tiles
+    from ovr_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda")
+    vr = np.load(os.path.join(out_dir, "value_range.npy")).tolist()
+    lg = torch.from_numpy(np.load(os.path.join(out_dir, "lattice.npy"))).to(
+        dev)
+    res = {}
+    for label, shape in PAR_MESHES:
+        mesh = make_mesh(*shape, device=dev, timeout=PAR_GROUP_TIMEOUT)
+        if mesh is None:
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n_b = mesh.n_bricks
+        rows = (bricks.slab_rows(PAR_N, n_b, mesh.brick) if n_b > 1
+                else None)
+        scene = rank_scene(PAR_N, rows, vr, dev, torch.bfloat16)
+        bv = None
+        if n_b > 1:
+            bv = bricks.from_slab(scene.volume.grid, (0.0, 0.0, 0.0),
+                                  (1.0, 1.0, 1.0), PAR_N, n_b, mesh.brick)
+        per = {}
+        for shading in PAR_SHADINGS:
+            cfg = par_cfg(shape_only(scene, PAR_N), shading)
+            lat = lg if shading == "shadow" else None
+
+            def frame():
+                if bv is not None:
+                    return bricks.render_bricked(scene, bv, cfg, mesh,
+                                                 light_grid=lat)
+                return tiles.render_sharded(scene, cfg, mesh, light_grid=lat)
+
+            swslice.LAUNCHES = 0
+            with PlainCalls() as plain:
+                band = frame()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(PAR_FRAMES):
+                    frame()
+                torch.cuda.synchronize()
+                frame_ms = (time.perf_counter() - t0) * 1e3 / PAR_FRAMES
+            launches = swslice.LAUNCHES
+            if plain.n or launches != 1 + PAR_FRAMES:
+                raise SystemExit(f"{label} {shading}: {launches} launches and "
+                                 f"{plain.n} plain calls in "
+                                 f"{1 + PAR_FRAMES} frames")
+            img = multihost.gather_frame(band, mesh)
+            if mesh.rank == 0:
+                np.save(os.path.join(out_dir, f"{shape[0]}x{shape[1]}_"
+                                     f"{shading}.npy"), img)
+            args, kw = capture_call(frame)
+            full = swslice.slice_composite(*args, **kw)
+            cnt, _ = counted(args, kw, full)
+            kernel_ms = cuda_ms(lambda: swslice.slice_composite(*args, **kw),
+                                3)
+            b_ms, b_by, samples, _, _ = bound(args, kw, cnt["pixel_samples"])
+            if (label == "bricks 1x2" and mesh.rank == 0
+                    and shading == "diffuse"):
+                diffuse_inputs = (args, kw, full)
+            per[shading] = dict(
+                frame_ms=frame_ms, kernel_ms=kernel_ms,
+                launches_per_frame=launches / (1 + PAR_FRAMES),
+                bound_ms=b_ms, bound_by=b_by, samples=samples,
+                share_of_bound=b_ms / kernel_ms,
+                fan=list(map(int, (args[4].shape[0], args[3].shape[0]))),
+                planes=args[6])
+            del args, kw, full, cnt, band
+        peak = torch.cuda.max_memory_allocated()
+        res[label] = dict(rank=mesh.rank, tile=mesh.tile, brick=mesh.brick,
+                          peak_bytes=peak,
+                          resident_bytes=torch.cuda.memory_allocated(),
+                          volume_bytes=(
+                              scene.volume.grid.numel()
+                              * scene.volume.grid.element_size()),
+                          transport=mesh.transport, shadings=per)
+        log(f"rank {mesh.rank} of {label} ({mesh.transport}; the ranks "
+            f"time-share one card): " + "; ".join(
+                f"{s} frame {r['frame_ms']:.1f} ms, kernel "
+                f"{r['kernel_ms']:.2f} ms ({100 * r['share_of_bound']:.1f}% "
+                f"of its bound {r['bound_ms']:.3f} ms), "
+                f"{r['launches_per_frame']:.0f} launch/frame"
+                for s, r in per.items())
+            + f"; peak memory {peak / 2**30:.2f} GiB, resident after the "
+              f"frames {res[label]['resident_bytes'] / 2**30:.2f} GiB (its "
+              f"volume {res[label]['volume_bytes'] / 2**30:.2f} GiB); {smi}")
+        if label == "bricks 1x2" and mesh.rank == 0:
+            band_check("brick 0 of 2 diffuse", res[label], *diffuse_inputs)
+            del diffuse_inputs
+        mesh.barrier()
+        del scene, bv
+    return res
+
+
+def state_err(card, cpu):
+    """max |card - cpu| over the largest |cpu|, per named tensor."""
+    return {k: float((card[k].cpu().float() - cpu[k].float()).abs().max())
+            / max(float(cpu[k].float().abs().max()), 1e-30) for k in cpu}
+
+
+def rank_train(out_dir, smi):
+    """(d) Train steps: the tiles step at the headline (2 x 1, none, the
+    bf16 grid, target zero), and the tiles step at 64^3 (2 x 1) and the
+    bricked step at 128^3 (1 x 2), each on the card and again on this
+    rank's CPU, the same mesh over gloo."""
+    import numpy as np
+    import torch
+    from ovr_tpu_torch.parallel import bricks, tiles
+    from ovr_tpu_torch.parallel.mesh import make_mesh
+    vr = np.load(os.path.join(out_dir, "value_range.npy")).tolist()
+    res = {}
+    mesh = make_mesh(2, 1, device="cuda", timeout=PAR_GROUP_TIMEOUT)
+    if mesh is not None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        scene = rank_scene(PAR_N, None, vr, "cuda", torch.bfloat16)
+        cfg = par_cfg(scene, "none")
+        step = tiles.make_train_step(cfg, mesh, lr=1e-2)
+        state = tiles.init_train_state(scene)
+        target = torch.zeros((1080, 1920, 4), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, scene, scene.camera, target)
+        torch.cuda.synchronize()
+        res["tiles_headline"] = dict(
+            loss=float(loss), ms=(time.perf_counter() - t0) * 1e3,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            grid_sum=float(state.grid.float().sum()),
+            m_grid_max=float(state.m_grid.float().abs().max()),
+            tf_alpha=state.tf_alpha.tolist(), finite=bool(
+                torch.isfinite(state.m_grid.float()).all()))
+        del scene, state, step
+    for name, shape, n, shading in (("tiles_64", (2, 1), 64, "diffuse"),
+                                    ("bricked_128", (1, 2), 128, "none"),
+                                    ("bricked_128_diffuse", (1, 2), 128,
+                                     "diffuse")):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            mesh = make_mesh(*shape, device=dev, timeout=PAR_GROUP_TIMEOUT)
+            if mesh is None:
+                continue
+            scene = make_scene(field(n, "bench", dev), "bench", "persp")
+            cfg = par_cfg(scene, shading, 128, 128, float(n))
+            target = torch.full((128, 128, 4), 0.25, device=dev)
+            t0 = time.perf_counter()
+            if shape[1] == 1:
+                step = tiles.make_train_step(cfg, mesh, lr=0.5)
+                st, loss = step(tiles.init_train_state(scene), scene,
+                                scene.camera, target)
+                out = {k: getattr(st, k) for k in ("grid", "tf_color",
+                                                   "tf_alpha", "m_grid")}
+            else:
+                step = bricks.make_train_step_bricked(cfg, mesh, lr=0.5)
+                bv = bricks.brick_volume(scene.volume, 2, only=mesh.brick)
+                bv2, tfc, tfa, loss = step(bv, scene.tfn.color,
+                                           scene.tfn.alpha, scene,
+                                           scene.camera, target)
+                out = dict(slab=bv2.bricks[0], tf_color=tfc, tf_alpha=tfa)
+            out["loss"] = loss.reshape(1)
+            outs[dev] = (out, (time.perf_counter() - t0) * 1e3)
+        if outs:
+            card_out = outs["cuda"][0]
+            cpu_out = {k: v.cpu() for k, v in outs["cpu"][0].items()}
+            res[name] = dict(err=state_err(card_out, cpu_out),
+                             loss=float(card_out["loss"]),
+                             card_ms=outs["cuda"][1], cpu_ms=outs["cpu"][1])
+            if "slab" in cpu_out:  # the global Z row of the largest slab gap
+                d = (card_out["slab"].cpu() - cpu_out["slab"]).abs()
+                row = int(d.amax((1, 2)).argmax())
+                res[name]["worst_row"] = (row - bricks.HALO
+                                          + mesh.brick * (n // 2))
+            if name == "bricked_128_diffuse":
+                # the conditioning: the CPU step again from the slab moved
+                # by +-1e-7 (uniform, seed 0)
+                gen = torch.Generator().manual_seed(0)
+                moved = bv.bricks[0] + (torch.rand(
+                    bv.bricks[0].shape, generator=gen) - 0.5) * 2e-7
+                bv2 = step(dataclasses.replace(bv, bricks=moved[None]),
+                           scene.tfn.color, scene.tfn.alpha, scene,
+                           scene.camera, target)[0]
+                res[name]["cpu_moved_slab_err"] = state_err(
+                    {"slab": bv2.bricks[0]}, {"slab": cpu_out["slab"]})["slab"]
+    log(f"rank train: " + json.dumps(res) + f"; {smi}")
+    return res
+
+
+def parallel_rank(out_dir, init, world, rank):
+    """One gloo rank of the job that shares the card (`--rank`)."""
+    import torch
+    import torch.distributed as dist
+    from ovr_tpu_torch.parallel import multihost
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(init, world, rank, backend="gloo",
+                         timeout=PAR_GROUP_TIMEOUT)
+    smi = card()
+    res = dict(rank=rank, frames=rank_frames(out_dir, smi),
+               train=rank_train(out_dir, smi))
+    print("RESULT " + json.dumps(res), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(grids, big, smi):
+    """The multi-device paths: (a) the kernel on brick and band inputs;
+    (b) one rank over NCCL; (c) PAR_WORLD gloo ranks that share the card
+    render the headline frame bricked 1 x 2, as tiles x bricks 2 x 2 and
+    as tiles 2 x 1, held against the single-rank frame; (d) their train
+    steps, against the same ranks on the CPU. Returns the phase's
+    record."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    # a brick's slab computed alone has the bits of the whole field's rows
+    from ovr_tpu_torch.parallel.bricks import slab_rows
+    rows = slab_rows(64, 4, 3)
+    if not torch.equal(field_slab(64, rows, "cuda", torch.bfloat16, chunk=5),
+                       field(64, "bench", "cuda").to(torch.bfloat16)[
+                           rows.cuda()]):
+        raise SystemExit("a slab of the field differs from its rows")
+    worst, bits = hook_parity(grids)
+    log(f"parallel (a): {len(HOOK_CASES)} brick and band cases agree, "
+        f"{bits} bit-identical, largest difference {worst:.2e} "
+        f"({time.perf_counter() - t0:.0f} s)")
+    one = nccl_one_rank(big)
+    scene = make_scene(big, "bench", "persp")
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vr = scene.tfn.value_range.cpu().numpy()
+        np.save(os.path.join(tmp, "value_range.npy"), vr)
+        for shading in PAR_SHADINGS:
+            cfg = par_cfg(scene, shading)
+            lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
+                  else None)
+            if lg is not None:
+                np.save(os.path.join(tmp, "lattice.npy"), lg.cpu().numpy())
+            refs[shading] = api.render(scene, cfg,
+                                       light_grid=lg).rgba.cpu().numpy()
+        del scene
+        torch.cuda.empty_cache()
+        t_job = time.perf_counter()
+        outs = multihost.run_ranks(
+            [sys.executable, os.path.abspath(__file__), "--rank", tmp],
+            PAR_WORLD, PAR_TIMEOUT)
+        job_s = time.perf_counter() - t_job
+        ranks = []
+        for r, out in enumerate(outs):
+            for line in out.splitlines():
+                if line.startswith("RESULT "):
+                    ranks.append(json.loads(line[7:]))
+                elif line.strip():
+                    log(f"  [rank {r}] {line}")
+        if len(ranks) != PAR_WORLD:
+            raise SystemExit("a rank printed no result")
+        vs = {}
+        for label, (n_t, n_b) in PAR_MESHES:
+            for shading in PAR_SHADINGS:
+                got = np.load(os.path.join(tmp, f"{n_t}x{n_b}_{shading}.npy"))
+                ref = refs[shading]
+                p95 = premult_p95(got, ref)
+                err = float(np.abs(got - ref).max())
+                if n_t == 1:
+                    tol = 1e-3 if shading == "none" else 3e-2
+                    ok = err <= tol
+                    rule = f"max |rgba| {err:.2e} <= {tol:.0e}"
+                else:
+                    ok = p95 < 0.06
+                    rule = f"interior p95 {p95:.4f} < 0.06"
+                vs[f"{label} {shading}"] = dict(max_abs=err, p95=p95, ok=ok)
+                log(f"parallel (c) {label} {shading} vs the single-rank "
+                    f"frame: {rule} (max {err:.2e}) {'ok' if ok else 'FAIL'}")
+                if not ok or got.shape != ref.shape:
+                    raise SystemExit(f"{label} {shading}: the frame is off")
+        # the step's forward is the tiles 2x1 frame without termination
+        banded = np.load(os.path.join(tmp, "2x1_none.npy")).astype(
+            np.float64)
+        fwd_loss = float(np.sum(banded ** 2) / banded.size)
+    train = {r["rank"]: r["train"] for r in ranks}
+    head = [train[r]["tiles_headline"] for r in (0, 1)]
+    ok_head = (all(head[0][k] == head[1][k]
+                   for k in ("loss", "grid_sum", "tf_alpha"))
+               and head[0]["finite"] and head[0]["m_grid_max"] > 0
+               and abs(head[0]["loss"] - fwd_loss) <= 1e-3 * fwd_loss)
+    log(f"parallel (d) tiles train step 2x1 at the headline (none, bf16 "
+        f"grid): loss {head[0]['loss']:.6e} on both ranks (the forward "
+        f"frame's {fwd_loss:.6e}), {head[0]['ms']:.0f} / {head[1]['ms']:.0f} "
+        f"ms per rank (time-shared), peak {head[0]['peak_bytes'] / 2**30:.2f}"
+        f" GiB; state the same on both ranks {'ok' if ok_head else 'FAIL'}")
+    errs = {}
+    for name in ("tiles_64", "bricked_128", "bricked_128_diffuse"):
+        errs[name] = {k: max(train[r][name]["err"][k] for r in (0, 1))
+                      for k in train[0][name]["err"]}
+        rows = [train[r][name].get("worst_row") for r in (0, 1)]
+        log(f"parallel (d) {name} card vs CPU ranks: largest normalised "
+            f"differences " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                        errs[name].items())
+            + (f" (slab: worst at global z rows {rows})" if rows[0] is
+               not None else "")
+            + (f"; the CPU slab from a grid moved by 1e-7: "
+               f"{train[0][name]['cpu_moved_slab_err']:.2e}"
+               if "cpu_moved_slab_err" in train[0][name] else "")
+            + f" (rank 0 card {train[0][name]['card_ms']:.0f} ms, CPU "
+              f"{train[0][name]['cpu_ms']:.0f} ms)")
+    # the gate: every state of the unshaded steps and of diffuse's tiles
+    # step, and the bricked diffuse step's loss and TF tables. Its slab is
+    # reported, not gated: the bench field's diffuse grid gradient at
+    # 128^3 is rounding noise where its planes are nearly flat (moving the
+    # grid by 1e-7 moves the CPU's own slab as far; printed above)
+    gated = [v for name in ("tiles_64", "bricked_128")
+             for v in errs[name].values()]
+    gated += [v for k, v in errs["bricked_128_diffuse"].items()
+              if k != "slab"]
+    if not ok_head or max(gated) > 1e-3:
+        raise SystemExit("a parallel train step is off")
+    errs = {k: max(v.values()) for k, v in errs.items()}
+    frames = {r["rank"]: r["frames"] for r in ranks}
+    launches = int(sum(s["launches_per_frame"] * (1 + PAR_FRAMES)
+                       for f in frames.values() for m in f.values()
+                       for s in m["shadings"].values()))
+    grid_bytes = big.numel() * big.element_size()
+    for r in (0, 1):
+        m = frames[r]["bricks 1x2"]
+        # resident: the slab, the lattice and the band; never the grid
+        if (m["resident_bytes"] > m["volume_bytes"] + 2**28
+                or m["peak_bytes"] >= grid_bytes + m["volume_bytes"]):
+            raise SystemExit(f"brick rank {r} holds more than its slab")
+    rec = dict(
+        transport=ranks[0]["frames"]["bricks 1x2"]["transport"],
+        hook_parity=dict(cases=len(HOOK_CASES), bit_identical=bits,
+                         max_abs_err=worst),
+        nccl_one_rank=one, ranks=frames, vs_single_rank=vs,
+        train={str(k): v for k, v in train.items()},
+        train_max_norm_err=errs, launches=launches,
+        job_seconds=job_s, seconds=time.perf_counter() - t0, card=smi)
+    log(f"parallel phase {rec['seconds']:.0f} s (the job of "
+        f"{PAR_WORLD} ranks {job_s:.0f} s)")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2783,6 +3390,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     # fails (ImportError) when run outside the repository
     from ovr_tpu_torch.ops import swslice  # noqa: F401
+    if sys.argv[1:2] == ["--rank"]:  # a rank of the parallel phase's job
+        return parallel_rank(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                             int(sys.argv[5]))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2821,6 +3431,9 @@ def main() -> int:
     log(f"parity with the exit map: all cases agree, largest difference "
         f"{max(worst_map, worst_map16):.2e} ({time.perf_counter() - t0:.0f} "
         f"s so far)")
+    par = parallel_phase(grids, grids[(1024, "bf16", "bench")], smi)
+    worst = max(worst, par["hook_parity"]["max_abs_err"],
+                par["ranks"][0]["bricks 1x2"].get("band_err", 0.0))
 
     results, launches, res16, launches16, vs_f32 = main_path(
         grids[(1024, "bf16", "bench")], smi, regs)
@@ -2926,6 +3539,11 @@ def main() -> int:
                             "(plain PyTorch, no kernel)"),
         "pt_dense_vs_mc_64": pt_dvm, "phase_seconds": phase_s,
         "card": smi}}, default=str))
+    print(json.dumps({"parallel": dict(
+        par, shape="1024^3 bf16, 1920x1080, rate 1024, auto, "
+                   "sw_slice_align 2, no macrocells; 4 gloo ranks share one "
+                   "card (frame and kernel times are time-shared)")},
+        default=str))
     print(json.dumps({"neural": {
         "shape": "hash grid 12 levels x 2 features, 2^17 entries, "
                  "resolutions 16-512; MLP 24-64-64-1 f32 (init seed 0); "
@@ -2952,6 +3570,13 @@ def main() -> int:
         "launches_neural": nhead["launches"],
         "launches_neural_train_step": nhead["train_step_128"][
             "launches_per_step"],
+        "launches_parallel_ranks": par["launches"],
+        "launches_parallel_one_rank": sum(
+            r["launches"] for r in par["nccl_one_rank"].values()),
+        "parallel_brick_0_of_2_diffuse": {
+            k: par["ranks"][0]["bricks 1x2"]["shadings"]["diffuse"][k]
+            for k in ("kernel_ms", "frame_ms", "bound_ms", "bound_by",
+                      "share_of_bound", "launches_per_frame")},
         "neural_proxy_diffuse": {k: nhead["frames"]["diffuse"][k] for k in (
             "kernel_ms", "frame_ms", "bound_ms", "bound_by", "band_err",
             "band_plain_ms", "band_kernel_ms", "share_of_bound")},

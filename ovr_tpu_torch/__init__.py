@@ -17,5 +17,7 @@ Entry points run on the card unless the caller passes `device="cpu"`:
 
 Scene files (VIDI3D JSON, USDA settings) load with
 `ovr_tpu_torch.io.create_scene(path, device=...)`; `RenderConfig(
-path_tracing=True, pt_dense=False|True)` path-traces them.
+path_tracing=True, pt_dense=False|True)` path-traces them. Several
+devices, one rank each, render and train through `ovr_tpu_torch.parallel`
+(row bands, Z-slab bricks composited around a ring).
 """

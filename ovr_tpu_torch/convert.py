@@ -13,6 +13,10 @@ instances `geometries.<i>.{kind,xfm,material.<field>,geometry.<field>}`
 `grid_cfg`, JAX's or the port's) is `volume.tables`,
 `volume.weights.<i>.{w,b}`, the world box and `data_range`,
 `volume.grid_cfg.<field>` and `volume.compute_dtype` (a dtype name).
+
+`arrays_from_fields` flattens the multi-device modules' states (JAX's
+`BrickedVolume` or `TrainState`, or the port's) by their field names;
+`bricked_from_arrays` and `train_state_from_arrays` build the port's.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from ovr_tpu_torch.core.scene import (Camera, GeometryInstance, Isosurface,
                                       TriangleMesh, VolumeInstance)
 from ovr_tpu_torch.neural.field import NeuralFieldVolume
 from ovr_tpu_torch.neural.hashgrid import HashGridConfig
+from ovr_tpu_torch.parallel.bricks import BrickedVolume
+from ovr_tpu_torch.parallel.tiles import TrainState
 
 _VOLUME = ("grid", "world_lo", "world_hi", "data_range")
 _TFN = ("color", "alpha", "value_range")
@@ -35,6 +41,9 @@ _MATERIAL = ("kd", "ks", "ns", "d")
 _MESH = ("verts", "faces", "colors", "uvs")
 _GRID_CFG = ("n_levels", "features_per_level", "log2_table_size",
              "base_resolution", "max_resolution")
+_BRICKED = ("bricks", "brick_lo", "brick_hi", "own_lo", "own_hi")
+_TRAIN_STATE = ("grid", "tf_color", "tf_alpha", "m_grid", "m_color",
+                "m_alpha")
 
 
 def _count(arrays: dict, prefix: str) -> int:
@@ -188,3 +197,19 @@ def scene_from_arrays(arrays: dict, device="cuda") -> Scene:
                         volume_sampling_rate=arrays["volume_sampling_rate"],
                         density_scale=arrays["density_scale"], lights=lights,
                         geometries=geometries, instances=instances)
+
+
+def arrays_from_fields(obj) -> dict:
+    """A BrickedVolume's or TrainState's arrays {field: np.ndarray}."""
+    names = _BRICKED if hasattr(obj, "bricks") else _TRAIN_STATE
+    return {f: _np(getattr(obj, f)) for f in names}
+
+
+def bricked_from_arrays(arrays: dict, device="cuda") -> BrickedVolume:
+    """The port's BrickedVolume (all bricks) from `arrays_from_fields`."""
+    return BrickedVolume(*(_tensor(arrays[f]).to(device) for f in _BRICKED))
+
+
+def train_state_from_arrays(arrays: dict, device="cuda") -> TrainState:
+    """The port's TrainState from `arrays_from_fields`."""
+    return TrainState(*(_tensor(arrays[f]).to(device) for f in _TRAIN_STATE))

@@ -141,13 +141,21 @@ def _max(x, v: float):
 
 
 def _march_step(carry, scene_leaves, ctx: ShadeContext, cfg: MarchConfig,
-                org, direction, step, t1, occupancy=None):
+                org, direction, step, t1, occupancy=None, t_own=None):
     """One front-to-back step for the whole ray batch; returns the new
-    carry (tx, ty, color, gradient, depth, alpha)."""
+    carry (tx, ty, color, gradient, depth, alpha).
+
+    `t_own`: optional per-ray (lo, hi) ownership window; an interval
+    whose midpoint lies outside [lo, hi) contributes nothing (the bricked
+    path's partition of the global march lattice, `march_segment`)."""
     grid, color_table, alpha_table, value_range, base = scene_leaves
     tx, ty, color, gradient, depth, alpha = carry
 
     active = (ty > tx) & (alpha < EARLY_EXIT_ALPHA)
+    contrib = active
+    if t_own is not None:
+        m = 0.5 * (tx + ty)
+        contrib = active & (m >= t_own[0]) & (m < t_own[1])
     mid = 0.5 * (tx + ty)
     pos = org + mid[..., None] * direction
     p_obj = _to_object(pos, ctx.world_lo, ctx.world_hi)
@@ -200,7 +208,7 @@ def _march_step(carry, scene_leaves, ctx: ShadeContext, cfg: MarchConfig,
         n_cam = torch.zeros_like(pos)
 
     tr = 1.0 - alpha
-    w = tr * torch.where(active, a, 0.0)
+    w = tr * torch.where(contrib, a, 0.0)
     color = color + w[..., None] * _clamp01(rgb)
     gradient = gradient + w[..., None] * _clamp01(n_cam)
     # premultiplied expected depth: with alpha it rebuilds the blended
@@ -346,6 +354,36 @@ def march(org, direction, scene_leaves, ctx: ShadeContext, cfg: MarchConfig,
     for _ in range(cfg.max_steps):
         state = one(state)
     return _finish(state, org, direction, scene_leaves, ctx, cfg, step)
+
+
+def march_segment(org, direction, scene_leaves, ctx: ShadeContext,
+                  cfg: MarchConfig, step, t0_lattice, t1_global, t_enter,
+                  t_exit, segment_steps: int):
+    """March only the intervals of the global lattice that [t_enter,
+    t_exit) owns: the per-brick integrator of the bricked path.
+
+    Interval k is [t0 + k*step, min(t0 + (k+1)*step, t1_global)], t0 =
+    `t0_lattice` (the ray's entry into the whole volume); this segment
+    integrates the intervals whose midpoint lies in [t_enter, t_exit), so
+    the over-composite of a partition's partials is the unbricked march
+    up to rounding. The start index is an integer computed alike by every
+    brick, so their interval positions agree bit for bit. Returns the
+    premultiplied (color, gradient, depth, alpha), not finalized."""
+    global STEPS
+    k = torch.clamp(torch.ceil((t_enter - t0_lattice) / step - 0.5),
+                    min=0.0)
+    n = org.shape[0]
+    color = gradient = org.new_zeros((n, 3))
+    depth = alpha = org.new_zeros((n,))
+    for _ in range(segment_steps):
+        tx = t0_lattice + k * step
+        ty = torch.minimum(tx + step, t1_global)
+        _, _, color, gradient, depth, alpha = _march_step(
+            (tx, ty, color, gradient, depth, alpha), scene_leaves, ctx, cfg,
+            org, direction, step, t1_global, t_own=(t_enter, t_exit))
+        k = k + 1.0
+        STEPS += 1
+    return color, gradient, depth, alpha
 
 
 def march_while(org, direction, scene_leaves, ctx: ShadeContext,

@@ -349,7 +349,9 @@ def _fan_rays(pg, qg, e, direction, axis, sign, ortho):
 # ---------------------------------------------------------------------------
 
 def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
-                     macrocells=None, pt_fields=None):
+                     macrocells=None, pt_fields=None, row0=None, n_rows=None,
+                     sample_box=None, clip_box=None, slice0=None,
+                     n_slices_loc=None, fan_only=False):
     """Render one frame. Returns premultiplied (color (N,3), grad (N,3),
     depth (N,), alpha (N,)) flat screen buffers (finalize with
     `integrator.finalize`).
@@ -371,10 +373,33 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     sample them instead of the volume and composite opacity
     1 - exp(-sigma dt) and emission J (`_pt_composite`, plain PyTorch:
     the JAX package runs this gather in its XLA loop, never in the slice
-    kernel); no surfaces, shading or plane skipping."""
+    kernel); no surfaces, shading or plane skipping.
+
+    Hooks of the multi-device paths (`parallel.tiles`, `parallel.bricks`;
+    the plane schedule always comes from scene.volume's world box, which
+    a bricked caller sets to the global box):
+    `row0`/`n_rows`: render only screen rows [row0, row0 + n_rows) of the
+    cfg.height frame; the fan shrinks to the band's footprint (pair with
+    a smaller sw.inter_h). `sample_box` (lo, hi): the world box of
+    scene.volume.grid's texels (a brick's halo'd sampling box); default
+    the volume box. `clip_box` (lo, hi): the box that clamps each ray's
+    interval (a brick's ownership range); default the volume box.
+    `slice0`/`n_slices_loc`: run only planes [slice0, slice0 +
+    n_slices_loc) of the schedule (default: from the plan's interior-eye
+    trim `slice0_static` to the end; a caller's `slice0` is never
+    trimmed). `fan_only`: return (color, grad, depth, alpha, ascending,
+    warp) in the fan, before the warp: `ascending` (Hi, Wi) bool is each
+    fan ray's world +z orientation (the bricks' compositing order) and
+    `warp(c, g, d, a)` does the deferred warp to the screen. No
+    macrocell skipping with a box or a plane range, as in the JAX
+    package."""
     sw: SwStatic = cfg.sw
     if sw is None:
         raise ValueError("cfg.sw unresolved; call cfg.resolved(scene)")
+    bricked = (sample_box is not None or clip_box is not None
+               or slice0 is not None)
+    if pt_fields is not None and (bricked or fan_only):
+        raise ValueError("pt_fields takes no brick hooks")
     dt = cfg.dtype
     vol = scene.volume
     # a path-traced neural field has no grid; its planes sample sigma
@@ -390,7 +415,7 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     grid = _volume_view(src, axis, 1)
     maj_v = None
     zyx = src.shape
-    if (macrocells is not None and cfg.sw_skip
+    if (macrocells is not None and cfg.sw_skip and not bricked
             and tuple(macrocells.vol_dims) == (zyx[2], zyx[1], zyx[0])):
         # a control input: no cotangent flows into the majorants
         maj_v = _volume_view(macrocells.majorant.detach().float(), axis,
@@ -399,15 +424,26 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     lo = vol.world_lo
     hi = vol.world_hi
     ext = hi - lo
-    s0s = int(sw.slice0_static)
-    slice0 = torch.tensor(float(s0s), **opts)
-    n_loc = sw.n_slices - s0s
+    smp_lo, smp_hi = (lo, hi) if sample_box is None else sample_box
+    clp_lo, clp_hi = (lo, hi) if clip_box is None else clip_box
+    if slice0 is None:
+        # interior-eye trim: start at the plan's first plane that can
+        # cover any ray interval (a bricked caller passes its own range)
+        s0s = int(sw.slice0_static)
+        slice0 = torch.tensor(float(s0s), **opts)
+        if n_slices_loc is None:
+            n_slices_loc = sw.n_slices - s0s
+    else:
+        slice0 = torch.as_tensor(slice0, **opts)
+    n_loc = sw.n_slices if n_slices_loc is None else int(n_slices_loc)
     e, direction, horizontal, vertical = camera_basis(camera, cfg.width,
                                                       cfg.height)
 
     # ---- screen ray-fan coordinates ---------------------------------------
     u = (torch.arange(cfg.width, **opts) + 0.5) / cfg.width - 0.5
-    v = (torch.arange(cfg.height, **opts) + 0.5) / cfg.height - 0.5
+    nr_loc = cfg.height if n_rows is None else int(n_rows)
+    base_row = 0.0 if row0 is None else float(row0)
+    v = (torch.arange(nr_loc, **opts) + 0.5 + base_row) / cfg.height - 0.5
     vv, uu = torch.meshgrid(v, u, indexing="ij")  # (H, W)
     if ortho:
         p_scr = e[w1] + uu * horizontal[w1] + vv * vertical[w1]
@@ -450,16 +486,20 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         lam = (z_abs - e[axis]) / direction[axis]
     else:
         lam = (z_abs - e[axis]) * sign
-    smp0 = torch.zeros((), **opts)
-    c = torch.clamp((z_rel - smp0) / ext[axis] * n_a - 0.5, 0.0, n_a - 1.0)
+    # axial texel mapping through the sample box, traversal coordinates
+    smp0 = ((smp_lo[axis] - lo[axis]) if sign > 0
+            else (hi[axis] - smp_hi[axis]))
+    smp_ext = smp_hi[axis] - smp_lo[axis]
+    c = torch.clamp((z_rel - smp0) / smp_ext * n_a - 0.5, 0.0, n_a - 1.0)
     k0 = torch.clamp(torch.floor(c).to(torch.int32), 0, n_a - 2)
+    # the clip box's axial interval in ray-parameter units
     den_a = direction[axis] if ortho else (1.0 / sign)
-    cl_a = (lo[axis] - e[axis]) / den_a
-    cl_b = (hi[axis] - e[axis]) / den_a
+    cl_a = (clp_lo[axis] - e[axis]) / den_a
+    cl_b = (clp_hi[axis] - e[axis]) / den_a
     cla = torch.minimum(cl_a, cl_b)
     cha = torch.maximum(cl_a, cl_b)
-    lo1, lo2 = lo[w1], lo[w2]
-    ex1, ex2 = ext[w1], ext[w2]
+    lo1, lo2 = smp_lo[w1], smp_lo[w2]
+    ex1, ex2 = smp_hi[w1] - smp_lo[w1], smp_hi[w2] - smp_lo[w2]
     warp = (cfg, sw, p_scr, q_scr, p_lo, q_lo, dp, dq, pg, u, v, e,
             direction, horizontal, vertical, axis, w1, w2, sign, ortho)
     if pt_fields is not None:
@@ -472,8 +512,9 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     base = cfg.base_rate * torch.ones((), **opts)
     half = 0.5 * dz * dlam
     clip_scalars = dict(
-        clo1=lo1, cex1=ex1, clo2=lo2, cex2=ex2, cla=cla, cha=cha,
-        smp0=smp0, smpsc=n_a / ext[axis],
+        clo1=clp_lo[w1], cex1=clp_hi[w1] - clp_lo[w1], clo2=clp_lo[w2],
+        cex2=clp_hi[w2] - clp_lo[w2], cla=cla, cha=cha,
+        smp0=smp0, smpsc=n_a / smp_ext,
         glo1=lo[w1], gex1=ext[w1], glo2=lo[w2], gex2=ext[w2],
         za0=lo[axis] if sign > 0 else hi[axis], zsg=float(sign))
     zdt = torch.zeros((), **opts)
@@ -538,6 +579,10 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         depth = depth + tr * bg_a * torch.minimum(
             t_bg, scalar(1e30, t_bg.dtype, t_bg.device)) * speed
         alpha = alpha + tr * bg_a
+    if fan_only:
+        dvec = _fan_rays(pg, qg, e, direction, axis, sign, ortho)[1]
+        return (color, grad, depth, alpha, dvec[..., 2] >= 0,
+                lambda c_, g_, d_, a_: _sw_warp_out(c_, g_, d_, a_, *warp))
     return _sw_warp_out(color, grad, depth, alpha, *warp)
 
 

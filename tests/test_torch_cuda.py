@@ -18,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (MARCH_CASES, PlainCalls, bf16_frame_rule,
-                        capture_gather, field, march_scene, multivol_scene,
-                        with_iso, with_sphere)
+from chip_smoke import (HOOK_CASES, MARCH_CASES, PlainCalls,
+                        bf16_frame_rule, capture_gather, field, hook_capture,
+                        make_scene, march_scene, multivol_scene, with_iso,
+                        with_sphere)
 from ovr_tpu_torch import api
 from ovr_tpu_torch.core.scene import Camera, Light, simple_scene
 from ovr_tpu_torch.ops import adjoint, swslice
@@ -623,3 +624,68 @@ def test_neural_train_step_on_card_matches_cpu():
     for c, h in zip(*grads):
         scale = float(h.abs().max())
         assert float((c - h).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in HOOK_CASES if c[0] == 64],
+                         ids=lambda c: f"{c[1]}-{c[2]}-{c[3]}")
+def test_kernel_matches_plain_on_brick_and_band_inputs(case):
+    """The kernel on the inputs the multi-device paths give it (a brick's
+    sample and clip boxes and plane range, a band's fan) against the
+    plain version: the same bits, the counting variant included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, dt, shading, cam, fd, term, tl, br, w, h = case
+    g = field(n, "bench", "cuda")
+    g = {"f32": g, "bf16": g.to(torch.bfloat16),
+         "u8": torch.clamp(torch.round(g * 255), 0, 255).to(torch.uint8)}[dt]
+    scene = make_scene(g, "bench", cam)
+    cfg = api.RenderConfig(width=w, height=h, sampling_rate=float(n),
+                           shading=shading, method="shearwarp", sw_term=term,
+                           sw_slice_align=4).resolved(scene)
+    cfg = dataclasses.replace(cfg, sw=dataclasses.replace(cfg.sw,
+                                                         fd_grad=fd))
+    lg = api.build_light_grid(scene, cfg) if shading == "shadow" else None
+    args, kw = hook_capture(scene, cfg, tl, br, lg)
+    before = swslice.LAUNCHES
+    out = swslice.slice_composite(*args, **kw)
+    torch.cuda.synchronize()
+    assert swslice.LAUNCHES == before + 1
+    got, want = _counts(args), _counts(args)
+    ref = swslice.slice_composite_plain(*args, **kw, **want)
+    assert torch.equal(out, ref)
+    assert torch.equal(swslice.slice_composite(*args, **kw, **got), out)
+    for k in got:
+        assert torch.equal(got[k], want[k])
+    assert float(ref[7].max()) > 0.05
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_frames_are_api_render():
+    """One rank over NCCL: the banded and the 1 x 1 bricked frame are
+    `api.render`'s bits, one kernel launch each, no plain call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from ovr_tpu_torch.parallel import bricks, multihost, tiles
+    from ovr_tpu_torch.parallel.mesh import make_mesh
+    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0,
+                         backend="nccl", timeout=120.0)
+    try:
+        mesh = make_mesh(1, 1, device="cuda", timeout=120.0)
+        assert mesh.transport == "nccl"
+        scene = make_scene(field(64, "bench", "cuda"), "bench", "persp")
+        bv = bricks.brick_volume(scene.volume, 1)
+        for shading in ("none", "diffuse"):
+            cfg = api.RenderConfig(width=160, height=96, sampling_rate=64.0,
+                                   shading=shading,
+                                   method="shearwarp").resolved(scene)
+            want = api.render(scene, cfg).rgba
+            before = swslice.LAUNCHES
+            with PlainCalls() as plain:
+                band = tiles.render_sharded(scene, cfg, mesh)
+                brick = bricks.render_bricked(scene, bv, cfg, mesh)
+            assert swslice.LAUNCHES == before + 2 and plain.n == 0
+            assert torch.equal(band, want) and torch.equal(brick, want)
+    finally:
+        dist.destroy_process_group()

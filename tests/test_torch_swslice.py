@@ -368,3 +368,94 @@ def test_plain_with_exit_map_matches_jax_xla_loop(shading):
     for got, ref, tol in zip(seen["fan"], want, (5e-5, 5e-5, 2e-4, 5e-5)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol)
     assert float(seen["fan"][3].max()) == 1.0  # the opaque surface
+
+
+# (view, shading, hooks): a brick (brick 1 of 4, with a band of rows 4-11
+# of 16) or a band alone (rows 8-15 of 16, its own fan); as
+# tests/test_bricks.py, the view's principal axis is the brick axis
+# (ascending, descending) or x (transverse)
+HOOK_CASES = [
+    ("asc", "none", "brick"),
+    ("desc", "diffuse", "brick"),
+    ("transverse", "shadow", "brick"),
+    ("asc", "diffuse", "band"),
+]
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["xla", "kernel"])
+@pytest.mark.parametrize("view,shading,part", HOOK_CASES,
+                         ids=[f"{v}-{s}-{p}" for v, s, p in HOOK_CASES])
+def test_render_hooks_match_jax(view, shading, part, kernel):
+    """`render_shearwarp` with the multi-device hooks (row0/n_rows, the
+    brick's sample and clip boxes, its plane range, fan_only) against
+    JAX's with the same hooks, through its XLA loop and interpret-mode
+    K1: the fan's partials and the warped band at 5e-5 (rgba, normals)
+    and 2e-4 (depth). The port's plain loop reads the hooks from the
+    kernel's scalars, so the CUDA kernel sees them the same way."""
+    import dataclasses
+
+    from ovr_tpu import api as japi
+    from ovr_tpu.parallel import bricks as jbricks
+    from ovr_tpu.render import shearwarp as jshearwarp
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.convert import (arrays_from_fields, arrays_from_scene,
+                                       bricked_from_arrays, scene_from_arrays)
+    from ovr_tpu_torch.parallel import bricks
+    from ovr_tpu_torch.parallel.tiles import band_cfg
+    from ovr_tpu_torch.render import shearwarp as tshearwarp
+    from tests.test_torch_bricks import VIEWS, sw_cfg
+    from tests.test_torch_parallel import jscene
+
+    n_b, b = 4, 1
+    js = jscene(VIEWS[view])
+    ts = scene_from_arrays(arrays_from_scene(js), device="cpu")
+    kw = sw_cfg(shading, n_b)
+    jc = japi.RenderConfig(**kw).resolved(js)
+    tc = api.RenderConfig(**kw).resolved(ts)
+    jc = dataclasses.replace(jc, sw=dataclasses.replace(jc.sw, pallas=kernel))
+    jkw, tkw = {}, {}
+    if shading == "shadow":
+        lg = japi.build_light_grid(js, jc)
+        jkw["light_grid"], tkw["light_grid"] = lg, torch.tensor(np.asarray(lg))
+    if part == "band":
+        jc = dataclasses.replace(jc, sw=dataclasses.replace(
+            jc.sw, inter_h=band_cfg(tc, 2).sw.inter_h))
+        tc = band_cfg(tc, 2)
+        assert tc.sw.inter_h == jc.sw.inter_h < 2 * 64  # the fan shrank
+        rows = dict(row0=8, n_rows=8)
+    else:
+        jbv = jbricks.brick_volume(js.volume, n_b)
+        tbv = bricked_from_arrays(arrays_from_fields(jbv), device="cpu")
+        sw = tc.sw
+        tkw.update(bricks.brick_hooks(sw, tbv.local(b), n_b))
+        rows = dict(row0=4, n_rows=8, slice0=tkw.pop("slice0"),
+                    n_slices_loc=tkw.pop("n_slices_loc"))
+        jkw.update(sample_box=(jbv.brick_lo[b], jbv.brick_hi[b]),
+                   clip_box=(jbv.own_lo[b], jbv.own_hi[b]))
+        js = dataclasses.replace(js, volume=dataclasses.replace(
+            js.volume, grid=jbv.bricks[b]))
+        ts = dataclasses.replace(ts, volume=dataclasses.replace(
+            ts.volume, grid=tbv.bricks[b]))
+        assert (sw.axis == 2) == (view != "transverse")
+        assert sw.sign == (-1 if view == "desc" else 1)
+        assert rows["slice0"] == (2.0 if view == "desc" else 1.0) * (
+            rows["n_slices_loc"] if sw.axis == 2 else 0)
+    jrows = dict(rows)
+    if "slice0" in jrows:
+        jrows["slice0"] = jnp.asarray(jrows["slice0"], jnp.float32)
+    want = jshearwarp.render_shearwarp(js, jc, js.camera, fan_only=True,
+                                       **jrows, **jkw)
+    before = swslice.LAUNCHES
+    got = tshearwarp.render_shearwarp(ts, tc, ts.camera, fan_only=True,
+                                      **rows, **tkw)
+    assert swslice.LAUNCHES == before
+    tols = (5e-5, 5e-5, 2e-4, 5e-5)
+    for g, w, tol in zip(got[:4], want[:4], tols):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol,
+                                   rtol=0)
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+    assert float(got[3].max()) > 0.05  # the brick's segment holds volume
+    for g, w, tol in zip(got[5](*got[:4]), want[5](*want[:4]), tols):
+        assert g.shape[0] == 8 * 16  # the band's pixels
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol,
+                                   rtol=0)
