@@ -114,8 +114,20 @@
    alike on both ranks) and the tiles step at 64^3 and the bricked step
    at 128^3 on the card and on the same ranks' CPUs (1e-3 of the largest
    element);
-10. prints one JSON line each of backward, march, surfaces, scene-file
-   and path-tracing, parallel, neural and kernel measurements (the
+10. runs the port's programs (`ovr_tpu_torch.apps`, `.examples`) on the
+   card after the neural phase, over bench.py's field as a 1 GiB u8
+   1024^3 VIDI3D scene, at 1920x1080, rate 1024, auto, diffuse,
+   macrocells on: render_batch's single frame (bit for bit a direct
+   Renderer's), --ab (PSNR >= 35 dB), the orbit with --resume (K1 twice;
+   needs PIL), --sequence over 4 u8 timesteps of bench.py's
+   phase-shifted field (pinned uploads on a side stream: their ms, GB/s
+   and overlap with the render against a pageable .to(), every frame bit
+   for bit a serial run's), the viewer behind its HTTP server at 512x512
+   and 1080p (the frame after POST /set bit for bit a direct Renderer's,
+   no render error), both examples card vs CPU, and the timer's fence
+   against CUDA events;
+11. prints one JSON line each of backward, march, surfaces, scene-file
+   and path-tracing, parallel, neural, apps and kernel measurements (the
    kernel line with an entry for the f32 function and one for its bf16
    variant), then, last, the device line {"ok": true, "device": {...}}.
 
@@ -2810,6 +2822,526 @@ def neural_headline(grid, smi):
 # the multi-device paths (ovr_tpu_torch.parallel)
 # ---------------------------------------------------------------------------
 
+APPS_N = 1024  # edge of the apps phase's volumes (bench.py's field, u8)
+APPS_SIZE = (1920, 1080)  # render_batch's frame and the viewer's larger one
+APPS_RATE = 1024.0  # samples per unit length (the box is [0, 1]^3)
+APPS_DEVICE = "cuda"
+APPS_STEPS = 4  # timesteps of the streamed sequence
+APPS_DEADLINE = 120.0  # seconds the viewer may take to publish a frame
+# the viewer's POST /set: a camera and a transfer function
+VIEWER_SETTINGS = {
+    "camera": {"from": [1.9, 0.9, -1.1], "at": [0.5, 0.5, 0.5]},
+    "tfn": {"alphas": [[0, 0], [0.35, 0.05], [1, 0.9]],
+            "colors": [[0, 0.1, 0.2, 0.9], [0.5, 0.9, 0.8, 0.2],
+                       [1, 0.8, 0.1, 0.1]]}}
+
+
+def sequence_files(n, steps, tmp, device):
+    """bench.py's BENCH_TIMEVAR field (phase 2 pi k / steps) at n^3 as
+    UNSIGNED_BYTE raws `seq_%04d.raw` in `tmp`, built on the device a
+    slab at a time. Returns (the %-pattern, the paths)."""
+    import math
+    import torch
+    ax = torch.linspace(0, 1, n, dtype=torch.float32, device=device)
+    x, y = ax[None, None, :], ax[None, :, None]
+    paths = []
+    for k in range(steps):
+        ph = 2 * math.pi * k / steps
+        path = os.path.join(tmp, f"seq_{k:04d}.raw")
+        with open(path, "wb") as f:
+            for z0 in range(0, n, 128):
+                z = ax[z0:z0 + 128, None, None]
+                g = 0.5 + 0.35 * torch.sin(12 * x + ph) * torch.cos(
+                    10 * y) * torch.sin(8 * z - ph)
+                f.write(torch.clamp(torch.round(g * 255), 0, 255).to(
+                    torch.uint8).cpu().numpy().tobytes())
+        paths.append(path)
+    return os.path.join(tmp, "seq_%04d.raw"), paths
+
+
+class DirectSession:
+    """A stand-in for the viewer's session whose queued setters run at
+    once on a renderer (the same setters, without the thread)."""
+
+    def __init__(self, renderer):
+        self.renderer = renderer
+
+    def submit(self, ops):
+        for name, args in ops:
+            getattr(self.renderer, name)(*args)
+
+
+def http_json(url, msg=None):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if msg is None else json.dumps(msg).encode(),
+        method="GET" if msg is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read() or b"{}")
+
+
+def viewer_session(scene, width, height, has_pil):
+    """The viewer's RenderSession on the card behind its HTTP server on
+    127.0.0.1:0: the first frame, POST /set (camera and TF) and the frame
+    after it, which must equal a direct Renderer's frame after the same
+    setters bit for bit; then accumulation on for 2 s and the fps /stats
+    reads; the server and the thread shut down. Fails if any render in
+    the session raised."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.apps import viewer
+    from ovr_tpu_torch.ops import swslice
+    cfg = api.RenderConfig(width=width, height=height,
+                           sampling_rate=APPS_RATE,
+                           shading="diffuse", fast_math=True,
+                           use_macrocells=True, method="auto")
+    sess = viewer.RenderSession(scene, cfg)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), viewer.make_handler(sess))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    n0 = swslice.LAUNCHES
+    sess.start()
+    th.start()
+    try:
+        def wait(n):
+            t0 = time.perf_counter()
+            while http_json(url + "/stats")["frame"] < n:
+                if time.perf_counter() - t0 > APPS_DEADLINE:
+                    raise SystemExit(f"viewer {width}x{height}: no frame "
+                                     f"{n} within {APPS_DEADLINE:.0f} s")
+                time.sleep(0.02)
+            return time.perf_counter() - t0
+
+        first_s = wait(1)
+        http_json(url + "/set", VIEWER_SETTINGS)
+        set_s = wait(2)
+        direct = api.Renderer(scene, cfg)
+        viewer.apply_settings(DirectSession(direct), VIEWER_SETTINGS)
+        direct.render()
+        same = torch.equal(direct._frame.rgba, sess.renderer._frame.rgba)
+        png_bytes = None
+        if has_pil:
+            import urllib.request
+            with urllib.request.urlopen(url + "/frame.png", timeout=60) as r:
+                png_bytes = len(r.read())
+        http_json(url + "/set", {"accumulation": True})
+        time.sleep(2.0)
+        stats = http_json(url + "/stats")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        sess.stop()
+    if sess._thread.is_alive():
+        raise SystemExit(f"viewer {width}x{height}: the render thread did "
+                         f"not stop")
+    res = dict(first_frame_s=first_s, set_to_frame_s=set_s, fps=stats["fps"],
+               frames=stats["frame"], errors=sess.errors,
+               bit_identical=same, png_bytes=png_bytes,
+               launches=swslice.LAUNCHES - n0 - 1)  # less the direct frame
+    if sess.errors or not same:
+        raise SystemExit(f"viewer {width}x{height}: {sess.errors} render "
+                         f"errors; frame after /set equal to a direct "
+                         f"Renderer's: {same}")
+    return res
+
+
+def held_by_spread(card, cpu, noisy, tol):
+    """Card against CPU where the CPU's own answer is stable: `noisy` is
+    the CPU's answer after a one-ulp perturbation of the voxels, and the
+    elements it moves by no more than `tol` are held at `tol`; the
+    largest difference overall must stay within the perturbation's
+    largest plus `tol`. Returns (ok, numbers)."""
+    spread = (noisy - cpu).abs()
+    err = (card.cpu() - cpu).abs()
+    stable = spread <= tol
+    out = dict(stable_share=float(stable.float().mean()),
+               err_stable=float(err[stable].max()), err=float(err.max()),
+               cpu_spread=float(spread.max()), tol=tol,
+               beyond_spread=int((err > spread + tol).sum()))
+    ok = (out["stable_share"] > 0.5 and out["err_stable"] <= tol
+          and out["err"] <= out["cpu_spread"] + tol)
+    return ok, out
+
+
+class OneUlpField:
+    """While installed, every field value the neural bakes compute moves
+    by one f32 ulp of its size, up or down at random (a fixed draw): the
+    CPU's own spread under rounding of the proxy's values."""
+
+    def __enter__(self):
+        import torch
+        from ovr_tpu_torch.neural import train
+        self.orig = real = train.field_sample
+
+        def noisy(field, p):
+            out = real(field, p)
+            g = torch.Generator().manual_seed(out.numel())
+            sign = torch.where(torch.rand(out.shape, generator=g) < 0.5,
+                               -1.0, 1.0).to(out.device)
+            return out + sign * torch.finfo(torch.float32).eps * (
+                out.detach().abs())
+
+        train.field_sample = noisy
+        return self
+
+    def __exit__(self, *exc):
+        from ovr_tpu_torch.neural import train
+        train.field_sample = self.orig
+
+
+def examples_on_card(smi):
+    """Both examples at their own sizes on the card, their frames and
+    gradients against the same steps on CPU copies. mini_renderer's
+    frames and grid gradients depend on ties at the level of one ulp
+    (its z = 0 face is flat to ~1e-5, which makes its diffuse frame
+    ill-conditioned in the reference too): each is held by
+    `held_by_spread` against the CPU's answer after a one-ulp
+    perturbation of the voxels (frames at 1e-4, gradients at 1e-3 of the
+    largest element). mini_neural is fitted on the card and copied to
+    the CPU: its frame is held at 1e-4 and its unshaded weight gradients
+    at 1e-3 of the largest element; its diffuse weight gradients move by
+    up to ~6e-3 of the largest element on the CPU itself when the
+    proxy's values move by one ulp, so each is held by `held_by_spread`
+    against that (`OneUlpField`)."""
+    import numpy as np
+    import torch
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.examples import mini_neural, mini_renderer
+    from ovr_tpu_torch.ops import swslice
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    out, n0 = {}, swslice.LAUNCHES
+    vol = mini_renderer.make_volume()
+    noisy = (vol * (1 + 1e-7 * np.random.default_rng(0).standard_normal(
+        vol.shape))).astype(np.float32)
+    scenes = {"card": mini_renderer.build_scene(vol, APPS_DEVICE),
+              "cpu": mini_renderer.build_scene(vol, "cpu"),
+              "noisy": mini_renderer.build_scene(noisy, "cpu")}
+    res, t0 = {}, time.perf_counter()
+    for shading in ("diffuse", "none"):
+        for k, sc in scenes.items():
+            cfg, fr = mini_renderer.render_frame(sc, shading=shading)
+            res[k, shading] = (fr.rgba, mini_renderer.grid_gradient(sc, cfg))
+            if k == "card":
+                torch.cuda.synchronize()
+                check_frame(f"mini_renderer {shading}", fr, 320, 240,
+                            min_alpha=0.3)
+                if shading == "diffuse":
+                    card_s = time.perf_counter() - t0
+    r = out["mini_renderer"] = dict(seconds_card=card_s, alpha_mean=float(
+        res["card", "diffuse"][0][..., 3].mean()))
+    ok = True
+    for shading in ("diffuse", "none"):
+        (fc, gc), (fh, gh), (fn, gn) = (res[k, shading] for k in scenes)
+        ok_f, r[f"{shading}_frame"] = held_by_spread(fc, fh, fn, 1e-4)
+        ok_g, r[f"{shading}_grad"] = held_by_spread(
+            gc, gh, gn, 1e-3 * float(gh.abs().max()))
+        ok = ok and ok_f and (ok_g or shading == "diffuse")
+    if not ok:
+        raise SystemExit(f"mini_renderer card vs CPU: {r}")
+    n1 = swslice.LAUNCHES
+    target = mini_neural.make_target()
+    from ovr_tpu_torch.neural.field import init_field
+    field = init_field(0, mini_neural.GRID_CFG, hidden=32, n_hidden=2,
+                       device=APPS_DEVICE)
+    t0 = time.perf_counter()
+    losses = mini_neural.fit(field, target)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    host_field = copy.deepcopy(field).cpu()
+    sc_c = mini_neural.field_scene(field, target)
+    sc_h = mini_neural.field_scene(host_field, target)
+    cfg_c, fr_c = mini_neural.render_field(sc_c)
+    check_frame("mini_neural", fr_c, 160, 120, min_alpha=0.3)
+    cfg_h, fr_h = mini_neural.render_field(sc_h)
+    grads = {"card": mini_neural.weight_gradients(sc_c, cfg_c),
+             "cpu": mini_neural.weight_gradients(sc_h, cfg_h)}
+    with OneUlpField():
+        grads["noisy"] = mini_neural.weight_gradients(sc_h, cfg_h)
+    none = {}
+    for k, sc in (("card", sc_c), ("cpu", sc_h)):
+        cfg = api.RenderConfig(width=160, height=120, sampling_rate=48.0,
+                               shading="none", method="auto",
+                               neural_proxy_res=64).resolved(sc)
+        none[k] = mini_neural.weight_gradients(sc, cfg)
+
+    def flat(g):
+        return [g[0]] + [x for wb in g[1] for x in wb]
+
+    names = ["tables"] + [f"{w}{i}" for i in range(len(grads["cpu"][1]))
+                          for w in "Wb"]
+    r = out["mini_neural"] = dict(
+        fit_s=fit_s, loss_first=float(losses[0]), loss_last=float(losses[-1]),
+        frame_err=float((fr_c.rgba.cpu() - fr_h.rgba).abs().max()),
+        alpha_mean=float(fr_c.rgba[..., 3].mean()),
+        launches=swslice.LAUNCHES - n1, diffuse_grads={},
+        none_grad_rel_err=max(rel(a, b) for a, b in zip(
+            flat(none["card"]), flat(none["cpu"]))))
+    ok = (r["frame_err"] <= 1e-4 and r["none_grad_rel_err"] <= 1e-3
+          and r["loss_last"] < r["loss_first"])
+    for name, gc, gh, gn in zip(names, *(flat(grads[k]) for k in (
+            "card", "cpu", "noisy"))):
+        ok_g, r["diffuse_grads"][name] = held_by_spread(
+            gc, gh, gn, 1e-3 * float(gh.abs().max()))
+        ok = ok and ok_g
+    out["mini_renderer"]["launches"] = n1 - n0
+    if not ok:
+        raise SystemExit(f"mini_neural card vs CPU: {r}")
+    if out["mini_renderer"]["launches"] < 1 or r["launches"] < 1:
+        raise SystemExit(f"an example never launched the slice kernel: "
+                         f"{out}")
+    m = out["mini_renderer"]
+
+    def held(x):
+        return (f"{x['err']:.2e} ({x['err_stable']:.2e} on the "
+                f"{100 * x['stable_share']:.1f}% a one-ulp perturbation "
+                f"moves by <= {x['tol']:.1e}; its own spread "
+                f"{x['cpu_spread']:.2e})")
+
+    log(f"examples on the card: mini_renderer 320x240 64^3 diffuse frame "
+        f"and grid gradient {card_s:.2f} s; card vs CPU: diffuse frame "
+        f"{held(m['diffuse_frame'])}, unshaded frame "
+        f"{held(m['none_frame'])}, unshaded gradient "
+        f"{held(m['none_grad'])}, diffuse gradient (reported) "
+        f"{held(m['diffuse_grad'])}; mini_neural fit 200 steps "
+        f"{fit_s:.2f} s (loss {r['loss_first']:.4f} -> "
+        f"{r['loss_last']:.4f}), frame {r['frame_err']:.2e}, unshaded "
+        f"weight gradients {r['none_grad_rel_err']:.2e} of the largest "
+        f"element, diffuse ones (tol 1e-3 of the largest) " + ", ".join(
+            f"{k} {held(v)}" for k, v in r["diffuse_grads"].items())
+        + f"; K1 launches {m['launches']} / {r['launches']}; {smi}")
+    return out
+
+
+def apps_phase(smi):
+    """The port's programs on the card at the headline's size (1920x1080,
+    rate 1024, auto, diffuse, macrocells on) over bench.py's field as a 1
+    GiB u8 1024^3 VIDI3D scene (`scene_files`, in a temporary directory
+    removed after): (a) render_batch's single frame (5 + 25 frames), whose
+    last frame must equal a directly built Renderer's bit for bit; (b)
+    --ab (PSNR >= 35 dB); (c) the orbit (--num-frames 4: 2 frames, then
+    --resume, which must launch K1 exactly twice; needs PIL); (d)
+    --sequence over APPS_STEPS u8 timesteps of bench.py's phase-shifted
+    field: streaming fps, each upload's ms, GB/s and overlap with the
+    render against a blocking pageable .to() of the same bytes, peak
+    memory, every streamed frame bit for bit the serial run's; (e) the
+    viewer at 512x512 and 1080p; (f) both examples; (g) Timer.stop with
+    a fence around a 1080p frame against its CUDA-event time. Returns
+    (the results, K1 launches in the phase)."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from ovr_tpu_torch import api, io
+    from ovr_tpu_torch.apps import render_batch
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.utils.timers import Timer
+    has_pil = importlib.util.find_spec("PIL") is not None
+    t_phase = time.perf_counter()
+    launches = {}
+    res = {"pil": has_pil}
+    n = APPS_N
+    dev, (w, h) = APPS_DEVICE, APPS_SIZE
+    g = field(n, "bench", dev)
+    grid = torch.clamp(torch.round(g * 255), 0, 255).to(torch.uint8)
+    del g
+    tmp = tempfile.mkdtemp(prefix="ovr_apps_")
+    try:
+        t0 = time.perf_counter()
+        _, js, _, _, _ = scene_files(grid, tmp)
+        del grid
+        pattern, seq_paths = sequence_files(n, APPS_STEPS, tmp, dev)
+        # the sequence's scene: set_volume_data casts the u8 counts to
+        # float32 (0-255), as the JAX package does, so its TF spans them
+        with open(js) as f:
+            doc = json.load(f)
+        vol = doc["view"]["volume"]
+        del vol["scalarMappingRange"]
+        vol["scalarMappingRangeUnnormalized"] = {"minimum": 0.0,
+                                                 "maximum": 255.0 * 255.0}
+        seq_js = os.path.join(tmp, "sequence.json")
+        with open(seq_js, "w") as f:
+            json.dump(doc, f)
+        res["write_s"] = time.perf_counter() - t0
+        common = ["--fbsize", str(w), str(h), "--sampling-rate",
+                  str(APPS_RATE), "--shading", "diffuse", "--use-macrocells",
+                  "--device", dev]
+        no_save = [] if has_pil else ["--no-save"]
+
+        # (a) single frame
+        argv = ["--scene", js] + common + no_save + [
+            "--exp", os.path.join(tmp, "single_")]
+        swslice.LAUNCHES = 0
+        with PlainCalls() as plain:
+            a = render_batch.main(argv)
+        launches["single"] = swslice.LAUNCHES
+        check_frame("render_batch single", a["frame"], w, h)
+        scene = io.create_scene(js, device=dev)
+        direct = render_batch.make_renderer(render_batch.parse_args(argv),
+                                            scene, scene.camera)
+        for _ in range(30):
+            direct.render()
+        same = all(torch.equal(getattr(direct._frame, c),
+                               getattr(a["frame"], c))
+                   for c in ("rgba", "grad", "depth"))
+        res["single"] = dict(fps=a["fps"], rays_s=a["rays_s"],
+                             launches=launches["single"], bit_identical=same)
+        if launches["single"] != 30 or plain.n or not same:
+            raise SystemExit(f"render_batch single: {res['single']}, "
+                             f"{plain.n} plain calls")
+        log(f"apps (a) render_batch single {w}x{h} {n}^3 u8 diffuse: "
+            f"fps {a['fps']:.2f}, rays/s {a['rays_s']:.4e}, "
+            f"{launches['single']} K1 launches for 30 frames, last frame "
+            f"bit for bit a direct Renderer's; {smi}")
+
+        # (b) --ab
+        swslice.LAUNCHES = 0
+        b = render_batch.main(["--scene", js] + common + [
+            "--ab", "--exp", os.path.join(tmp, "ab_")])
+        launches["ab"] = swslice.LAUNCHES
+        res["ab"] = dict(psnr_db=b.get("psnr"), mse=b.get("mse"),
+                         seconds=b["seconds"], launches=launches["ab"])
+        if b.get("psnr") is None or b["psnr"] < 35.0 or launches["ab"] != 1:
+            raise SystemExit(f"render_batch --ab: {res['ab']}")
+        log(f"apps (b) --ab: PSNR {b['psnr']:.2f} dB, march "
+            f"{b['seconds']['march']:.2f} s, shear-warp "
+            f"{b['seconds']['shearwarp']:.3f} s (first frames, commit "
+            f"included); {smi}")
+
+        # (c) orbit, resumed
+        if has_pil:
+            exp = os.path.join(tmp, "orbit", "orbit_")
+            os.makedirs(os.path.dirname(exp))
+            for i in (2, 3):  # frames 2 and 3 "done": the first run stops
+                open(f"{exp}{i:05d}.png", "wb").close()
+            orbit = ["--scene", js] + common + [
+                "--num-frames", "4", "--resume", "--exp", exp]
+            swslice.LAUNCHES = 0
+            c1 = render_batch.main(orbit)
+            launches["orbit_first"] = swslice.LAUNCHES
+            for i in (2, 3):
+                os.remove(f"{exp}{i:05d}.png")
+            swslice.LAUNCHES = 0
+            c2 = render_batch.main(orbit)
+            launches["orbit_resumed"] = swslice.LAUNCHES
+            res["orbit"] = dict(first=c1["rendered"], resumed=c2["rendered"],
+                                launches_resumed=launches["orbit_resumed"],
+                                camera_pos=c1["camera_pos"] + c2[
+                                    "camera_pos"])
+            if (c1["rendered"], c2["rendered"],
+                    launches["orbit_resumed"]) != ([0, 1], [2, 3], 2):
+                raise SystemExit(f"render_batch orbit: {res['orbit']}")
+            log(f"apps (c) orbit: frames {c1['rendered']} then, resumed, "
+                f"{c2['rendered']} with {launches['orbit_resumed']} K1 "
+                f"launches")
+        else:
+            res["orbit"] = ("not run: no PIL on this machine (the frames "
+                            "are PNGs); tests/test_torch_apps.py covers it "
+                            "on the CPU")
+
+        # (d) the streamed sequence against a serial run
+        seq = ["--scene", seq_js] + common + no_save + [
+            "--sequence", pattern, "--sequence-type", "UNSIGNED_BYTE",
+            "--exp", os.path.join(tmp, "seq_")]
+        frames = []
+        swslice.LAUNCHES = 0
+        with PlainCalls() as plain:
+            d = render_batch.main(seq, on_frame=lambda i, r: frames.append(
+                r._frame.rgba.clone()))
+        launches["sequence"] = swslice.LAUNCHES
+        sscene = io.create_scene(seq_js, device=dev)
+        serial = render_batch.make_renderer(render_batch.parse_args(seq),
+                                            sscene, sscene.camera)
+        pageable, same = [], []
+        for k, p in enumerate(seq_paths):
+            host = np.fromfile(p, np.uint8).reshape(n, n, n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            upload = torch.from_numpy(host).to(dev)
+            torch.cuda.synchronize()
+            pageable.append(time.perf_counter() - t0)
+            del host
+            serial.set_volume_data(upload)
+            del upload
+            serial.render()
+            check_frame(f"sequence t{k}", serial._frame, w, h)
+            same.append(torch.equal(serial._frame.rgba, frames[k]))
+        del frames, serial, sscene
+        nbytes = n ** 3
+        ups = d.get("uploads", [])
+        res["sequence"] = dict(
+            streaming_fps=d.get("streaming_fps"), timesteps=d["timesteps"],
+            uploads=ups, pageable_ms=[s * 1e3 for s in pageable],
+            pageable_gbps=[nbytes / s / 1e9 for s in pageable],
+            peak_bytes=d.get("peak_bytes"), launches=launches["sequence"],
+            bit_identical=same, shape=f"{n}^3 u8 timesteps "
+            f"({nbytes / 2**30:.2f} GiB each), cast to float32 on the card")
+        if (not all(same) or len(same) != APPS_STEPS or plain.n
+                or launches["sequence"] != APPS_STEPS or len(ups) !=
+                APPS_STEPS - 1):
+            raise SystemExit(f"render_batch --sequence: {res['sequence']}")
+        log(f"apps (d) --sequence {APPS_STEPS} x {n}^3 u8: streaming fps "
+            f"{d['streaming_fps']:.3f}; uploads (pinned, side stream) "
+            + ", ".join(f"{u['ms']:.2f} ms {u['gbps']:.2f} GB/s overlap "
+                        f"{100 * u['overlap']:.0f}% (render "
+                        f"{u['render_ms']:.2f} ms)" for u in ups)
+            + "; blocking pageable .to() " + ", ".join(
+                f"{s * 1e3:.2f} ms" for s in pageable)
+            + f"; peak {d['peak_bytes'] / 2**30:.2f} GiB; every frame bit "
+            f"for bit the serial run's; {smi}")
+
+        # (e) the viewer
+        swslice.LAUNCHES = 0
+        res["viewer"] = {f"{vw}x{vh}": viewer_session(scene, vw, vh,
+                                                      has_pil)
+                         for vw, vh in ((512, 512), (w, h))}
+        launches["viewer"] = sum(v["launches"]
+                                 for v in res["viewer"].values())
+        log("apps (e) viewer: " + "; ".join(
+            f"{k} first frame {v['first_frame_s']:.2f} s, /set to frame "
+            f"{v['set_to_frame_s']:.3f} s, fps {v['fps']}, {v['frames']} "
+            f"frames, errors {v['errors']}, bit for bit a direct Renderer's"
+            for k, v in res["viewer"].items()) + f"; {smi}")
+
+        # (g) the timer's fence against CUDA events
+        cfg = direct._cfg
+        mc = direct._macrocells
+        api.render(scene, cfg, macrocells=mc)
+        ratios = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            tm = Timer()
+            tm.start()
+            e0.record()
+            frame = api.render(scene, cfg, macrocells=mc)
+            e1.record()
+            host_s = tm.stop(fence=frame.rgba)
+            torch.cuda.synchronize()
+            ratios.append(host_s * 1e3 / e0.elapsed_time(e1))
+        res["timer"] = dict(host_over_events=ratios)
+        if min(ratios) < 0.9:
+            raise SystemExit(f"Timer.stop(fence=) read less than 0.9x the "
+                             f"frame's CUDA-event time: {ratios}")
+        del scene, direct, mc, frame
+    finally:
+        shutil.rmtree(tmp)
+
+    # (f) the examples
+    res["examples"] = examples_on_card(smi)
+    launches["examples"] = (res["examples"]["mini_renderer"]["launches"]
+                            + res["examples"]["mini_neural"]["launches"])
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    return res, sum(launches.values())
+
+
 PAR_N = 1024  # the headline volume's edge (ranks build it, or a slab)
 PAR_SHADINGS = ("none", "diffuse", "shadow")
 PAR_FRAMES = 3  # timed frames per rank and shading (after one warm-up)
@@ -3498,6 +4030,9 @@ def main() -> int:
     worst = max([worst] + [r["band_err"] for r in nhead["frames"].values()])
     log(f"neural phase {neural_s:.0f} s ({time.perf_counter() - t0:.0f} s "
         f"so far)")
+    apps, apps_launches = apps_phase(smi)
+    log(f"apps phase {apps['seconds']:.0f} s, {apps_launches} K1 launches "
+        f"({time.perf_counter() - t0:.0f} s so far)")
     log("scene io and path tracing phases: " + ", ".join(
         f"{k} {v:.0f} s" for k, v in phase_s.items())
         + f" ({time.perf_counter() - t0:.0f} s so far)")
@@ -3552,6 +4087,12 @@ def main() -> int:
                  "128^3 proxy",
         "parity_24": npar, "headline": nhead, "seconds": neural_s,
         "card": smi}}, default=str))
+    print(json.dumps({"apps": dict(
+        apps, shape="1 GiB u8 1024^3 VIDI3D scene (bench.py's field), "
+                    "1920x1080, rate 1024, auto, diffuse, macrocells on; "
+                    f"sequence {APPS_STEPS} x 1024^3 u8; viewer 512x512 and "
+                    "1920x1080; examples at their own sizes",
+        card=smi)}, default=str))
     keys = ("kernel_ms", "frame_ms", "mrays_s", "bound_ms", "bound_by",
             "samples", "ops_per_sample", "share_of_bound", "band_plain_ms",
             "band_kernel_ms", "band_err", "peak_bytes", "registers",
@@ -3571,6 +4112,7 @@ def main() -> int:
         "launches_neural_train_step": nhead["train_step_128"][
             "launches_per_step"],
         "launches_parallel_ranks": par["launches"],
+        "launches_apps": apps_launches,
         "launches_parallel_one_rank": sum(
             r["launches"] for r in par["nccl_one_rank"].values()),
         "parallel_brick_0_of_2_diffuse": {

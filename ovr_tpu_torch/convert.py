@@ -17,6 +17,13 @@ instances `geometries.<i>.{kind,xfm,material.<field>,geometry.<field>}`
 `arrays_from_fields` flattens the multi-device modules' states (JAX's
 `BrickedVolume` or `TrainState`, or the port's) by their field names;
 `bricked_from_arrays` and `train_state_from_arrays` build the port's.
+
+Checkpoints: `utils.checkpoint` spells its keys as the JAX package does,
+so a `TrainState` or a `NeuralFieldVolume` loads across packages by key.
+The inverse-rendering step's state is the one tree whose layout differs
+(JAX: `((tables, weights), (ScaleByAdamState, EmptyState))`; the port:
+`(parameters, torch.optim.Adam)`): `image_train_state_from_arrays`
+maps it.
 """
 
 from __future__ import annotations
@@ -213,3 +220,23 @@ def bricked_from_arrays(arrays: dict, device="cuda") -> BrickedVolume:
 def train_state_from_arrays(arrays: dict, device="cuda") -> TrainState:
     """The port's TrainState from `arrays_from_fields`."""
     return TrainState(*(_tensor(arrays[f]).to(device) for f in _TRAIN_STATE))
+
+
+def image_train_state_from_arrays(arrays: dict, state) -> None:
+    """Load a checkpoint of JAX's `make_image_train_step` state, as flat
+    {key path: array} (`[0]...` the field's tables and (W, b) pairs,
+    `[1][0].count`, `.mu...`, `.nu...` optax's Adam state), into the
+    port's state (parameters, Adam) from `neural.train.
+    make_image_train_step`, in place: the parameters are the field's
+    tables and then W, b of each layer, in JAX's order."""
+    params, opt = state
+    paths = ["[0]"] + [f"[1][{i}][{j}]" for i in range((len(params) - 1) // 2)
+                       for j in range(2)]
+    step = float(np.asarray(arrays["[1][0].count"]))
+    with torch.no_grad():
+        for p, path in zip(params, paths):
+            p.copy_(_tensor(arrays["[0]" + path]))
+            opt.state[p] = {
+                "step": torch.tensor(step),
+                "exp_avg": _tensor(arrays["[1][0].mu" + path]).to(p),
+                "exp_avg_sq": _tensor(arrays["[1][0].nu" + path]).to(p)}

@@ -689,3 +689,74 @@ def test_one_rank_nccl_frames_are_api_render():
             assert torch.equal(band, want) and torch.equal(brick, want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_timer_fence_waits_for_the_frame():
+    """`Timer.stop(fence=frame)` reads at least 0.9x the CUDA-event time of
+    the frame it fences (256^3, 512x512, rate 256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ovr_tpu_torch.utils.timers import Timer
+    scene = make_scene(field(256, "bench", "cuda"), "bench", "persp")
+    cfg = api.RenderConfig(width=512, height=512, sampling_rate=256.0,
+                           shading="diffuse",
+                           method="auto").resolved(scene)
+    api.render(scene, cfg)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = Timer()
+        t.start()
+        e0.record()
+        frame = api.render(scene, cfg)
+        e1.record()
+        host_ms = t.stop(fence=frame.rgba) * 1e3
+        torch.cuda.synchronize()
+        assert host_ms >= 0.9 * e0.elapsed_time(e1)
+
+
+@pytest.mark.cuda
+def test_streamed_sequence_frames_are_the_serial_ones(tmp_path):
+    """render_batch --sequence on the card (pinned buffers, side-stream
+    uploads under the previous render) over four 64^3 u8 timesteps:
+    every frame equals, bit for bit, a serial run's (a blocking upload,
+    then the render), and every upload after the first is measured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    from chip_smoke import scene_files, sequence_files
+    from ovr_tpu_torch import io
+    from ovr_tpu_torch.apps import render_batch
+    n = 64
+    grid = torch.clamp(torch.round(field(n, "bench", "cuda") * 255), 0,
+                       255).to(torch.uint8)
+    _, js, _, _, _ = scene_files(grid, str(tmp_path))
+    pattern, paths = sequence_files(n, 4, str(tmp_path), "cuda")
+    doc = json.loads(open(js).read())
+    vol = doc["view"]["volume"]
+    del vol["scalarMappingRange"]
+    vol["scalarMappingRangeUnnormalized"] = {"minimum": 0.0,
+                                             "maximum": 65025.0}
+    seq_js = str(tmp_path / "sequence.json")
+    open(seq_js, "w").write(json.dumps(doc))
+    argv = ["--scene", seq_js, "--fbsize", "160", "96", "--sampling-rate",
+            "64", "--shading", "diffuse", "--use-macrocells", "--no-save",
+            "--sequence", pattern, "--sequence-type", "UNSIGNED_BYTE"]
+    frames = []
+    before = swslice.LAUNCHES
+    res = render_batch.main(argv, on_frame=lambda i, r: frames.append(
+        r._frame.rgba.clone()))
+    assert swslice.LAUNCHES - before == 4
+    assert len(res["uploads"]) == 3
+    assert all(u["ms"] > 0 for u in res["uploads"])
+    scene = io.create_scene(seq_js, device="cuda")
+    serial = render_batch.make_renderer(render_batch.parse_args(argv),
+                                        scene, scene.camera)
+    for k, p in enumerate(paths):
+        serial.set_volume_data(torch.from_numpy(
+            np.fromfile(p, np.uint8).reshape(n, n, n)).cuda())
+        serial.render()
+        assert torch.equal(serial._frame.rgba, frames[k])
+    assert not torch.equal(frames[0], frames[1])
