@@ -126,10 +126,29 @@
    and 1080p (the frame after POST /set bit for bit a direct Renderer's,
    no render error), both examples card vs CPU, and the timer's fence
    against CUDA events;
-11. prints one JSON line each of backward, march, surfaces, scene-file
-   and path-tracing, parallel, neural, apps and kernel measurements (the
-   kernel line with an entry for the f32 function and one for its bf16
-   variant), then, last, the device line {"ok": true, "device": {...}}.
+11. runs the port's bench program (`ovr_tpu_torch.bench`, bench.py's
+   BENCH_* knobs) last: first it issues one headline diffuse frame under
+   torch's sync debug mode "error" (no host-device synchronization may
+   happen inside a frame); (a) `python3 -m ovr_tpu_torch.bench` with no
+   knobs as a subprocess (the 1024^3 bf16 1080p diffuse headline, 3 + 10
+   frames), which must print exactly one JSON line with bench.py's four
+   keys and metric text, launch K1 once a frame with no plain call, and
+   give rays/s within 10% of step 4's diffuse frame timed again just
+   before it; (b) every other mode
+   once in process at the headline size (none, shadow, bf16, six lights,
+   u8, opaque with termination on and off, the eye inside, the march,
+   the backward, both path tracers, the neural field forward and its
+   train step at a 128^3 proxy, four streamed timesteps, two gloo ranks
+   sharing the card as bricks 1 x 2), the slow ones at a cut depth, each
+   printing its key, rays/s, frame ms by events and host clock, peak
+   memory, K1 launches and path; (c) breaks down K1's work (samples
+   needed, planes composited, kernel ms against its bound) on the
+   headline's, the eye inside's and the opaque frames' inputs;
+12. prints one JSON line each of backward, march, surfaces, scene-file
+   and path-tracing, parallel, neural, apps, bench and kernel
+   measurements (the kernel line with an entry for the f32 function and
+   one for its bf16 variant), then, last, the device line {"ok": true,
+   "device": {...}}.
 
 Exits non-zero without a CUDA device, without the repository beside it,
 or when any phase fails. Imports neither JAX nor the JAX package.
@@ -200,20 +219,21 @@ def log(*a):
 
 
 def field(n, kind, device, z_rows=None):
-    """bench.py's synthetic volume ("bench"), or a blob in one octant
-    ("sparse"), as f32 on the device; `z_rows` (an index tensor) keeps
-    those Z rows only, computed alone (a brick's slab)."""
+    """bench.py's synthetic volume ("bench", built on the device by the
+    port's bench, `ovr_tpu_torch.bench.field_on_device`, so that both
+    time the same volume), or a blob in one octant ("sparse"), as f32 on
+    the device; `z_rows` (an index tensor) keeps those Z rows only,
+    computed alone (a brick's slab)."""
     import torch
+    if kind != "sparse":
+        from ovr_tpu_torch.bench import field_on_device
+        return field_on_device(n, device, z_rows)
     ax = torch.linspace(0, 1, n, dtype=torch.float32, device=device)
     x, y, z = ax[None, None, :], ax[None, :, None], ax[:, None, None]
     if z_rows is not None:
         z = z[z_rows.to(device)]
-    if kind == "sparse":
-        return torch.exp(-((x - 0.7) ** 2 + (y - 0.3) ** 2
-                           + (z - 0.6) ** 2) * 120)
-    g = 0.5 + 0.35 * torch.sin(12 * x) * torch.cos(10 * y) * torch.sin(8 * z)
-    return g + 0.15 * torch.exp(-((x - 0.5) ** 2 + (y - 0.5) ** 2
-                                  + (z - 0.5) ** 2) * 40)
+    return torch.exp(-((x - 0.7) ** 2 + (y - 0.3) ** 2
+                       + (z - 0.6) ** 2) * 120)
 
 
 CAMERAS = {
@@ -3342,6 +3362,220 @@ def apps_phase(smi):
     return res, sum(launches.values())
 
 
+# the port's bench (ovr_tpu_torch.bench): every BENCH_* mode once at the
+# headline size, in process; depth cut (warm-up + timed frames or steps)
+# where a frame or step takes seconds. (label, knobs)
+BENCH_MODES = (
+    ("none", dict(BENCH_SHADING="none")),
+    ("shadow", dict(BENCH_SHADING="shadow")),
+    ("bf16", dict(BENCH_BF16="1")),
+    ("6 lights", dict(BENCH_EXTRA_LIGHTS="6")),
+    ("u8", dict(BENCH_STORE="u8")),
+    ("opaque", dict(BENCH_OPAQUE="1")),
+    ("opaque noterm", dict(BENCH_OPAQUE="1", BENCH_TERM="0")),
+    ("eye inside", dict(BENCH_EYE="inside")),
+    ("march", dict(BENCH_METHOD="march", BENCH_WARMUP="1",
+                   BENCH_FRAMES="1")),
+    ("backward diffuse", dict(BENCH_BACKWARD="1", BENCH_WARMUP="1",
+                              BENCH_FRAMES="1")),
+    ("pt mc", dict(BENCH_PT="mc", BENCH_WARMUP="1", BENCH_FRAMES="2")),
+    ("pt dense", dict(BENCH_PT="dense", BENCH_WARMUP="1", BENCH_FRAMES="2")),
+    ("neural fwd", dict(BENCH_NEURAL="fwd", BENCH_WARMUP="1",
+                        BENCH_FRAMES="3")),
+    ("neural train 128", dict(BENCH_NEURAL="train", BENCH_PROXY="128",
+                              BENCH_WARMUP="1", BENCH_FRAMES="1")),
+    ("timevar 4", dict(BENCH_TIMEVAR="4")),
+    ("mesh 1x2 shared", dict(BENCH_MESH="1x2")),
+)
+BENCH_TOL = 0.10  # the bench's headline rays/s against time_frames' frame
+# modes whose K1 work bench_phase breaks down besides the headline's
+BENCH_BREAKDOWN = ("eye inside", "opaque", "opaque noterm")
+BENCH_TIMEOUT = 300.0  # seconds the headline bench subprocess may take
+BENCH_LAUNCHES = re.compile(r"slice kernel launches (\d+) \(bf16 variant "
+                            r"(\d+)\), plain-version calls (\d+)")
+
+
+def bench_line(label, res, smi):
+    """Log one bench run: its key, rays/s, frame ms by events and host
+    clock, peak, launches, path; the value must be finite and positive."""
+    import math
+    t, v = res["timing"], res["line"]["value"]
+    ms, host_ms = t.seconds * 1e3 / t.frames, t.host_seconds * 1e3 / t.frames
+    log(f"bench {label:16s} {res['key']}: {v:.6e} rays/s, {ms:.3f} ms a "
+        f"frame (CUDA events; host clock {host_ms:.3f} ms, {t.frames} "
+        f"timed), peak {t.peak_bytes / 2**30:.2f} GiB, K1 launches "
+        f"{t.launches} (bf16 variant {t.launches_bf16}), plain calls "
+        f"{t.plain_calls} (K1 {'ran' if t.launches else 'did not run'});"
+        f" {res['path']}; {smi}")
+    if not (math.isfinite(v) and v > 0):
+        raise SystemExit(f"bench {label}: value {v}")
+    return dict(key=res["key"], value=v, metric=res["line"]["metric"],
+                frame_ms=ms, host_ms=host_ms, frames=t.frames,
+                peak_bytes=t.peak_bytes, launches=t.launches,
+                launches_bf16=t.launches_bf16, plain_calls=t.plain_calls,
+                path=res["path"], k1_ran=t.launches > 0)
+
+
+def bench_breakdown(label, knobs, smi):
+    """K1 on the inputs of the bench's frame 0 for `knobs` (after its
+    run; these launches are not the bench's): the samples the frame
+    needs and the planes its blocks composited (the counting variant,
+    which must give the timed variant's bits), kernel ms and the bound."""
+    import torch
+    from ovr_tpu_torch import bench
+    from ovr_tpu_torch.ops import swslice
+    s = bench.build_setup(bench.read_knobs(knobs))
+    frame = bench.forward_frame(s)
+    zero = torch.zeros((), device="cuda")
+    with torch.no_grad():
+        args, kw = capture_call(lambda: frame(0, zero))
+        full = swslice.slice_composite(*args, **kw)
+        cnt, _ = counted(args, kw, full)
+        kernel_ms = cuda_ms(lambda: swslice.slice_composite(*args, **kw), 5)
+    bound_ms, bound_by, samples, _, _ = bound(args, kw,
+                                              cnt["pixel_samples"])
+    hi, wi = args[4].shape[0], args[3].shape[0]
+    r = dict(fan=(hi, wi), planes=args[6], samples=samples,
+             samples_per_fan_pixel=samples / (hi * wi),
+             block_planes=int(cnt["block_planes"].sum()),
+             kernel_ms=kernel_ms, bound_ms=bound_ms, bound_by=bound_by,
+             share_of_bound=bound_ms / kernel_ms)
+    log(f"bench {label} K1: fan {hi}x{wi}, {args[6]} planes, "
+        f"{samples:.4e} samples needed ({r['samples_per_fan_pixel']:.1f} a "
+        f"fan pixel), {r['block_planes']} block-planes composited, kernel "
+        f"{kernel_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{100 * r['share_of_bound']:.1f}% of it); {smi}")
+    return r
+
+
+def issued_without_sync(scene, mc):
+    """One headline diffuse frame issued under torch's sync debug mode
+    "error": the frame must reach the card without the host waiting for
+    it (a wait inside the frame serializes the host's issue time with the
+    kernel). Returns the host ms the issue took."""
+    import torch
+    from ovr_tpu_torch import api
+    cfg = headline_cfg(scene, "diffuse")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        api.render(scene, cfg, macrocells=mc)
+    except RuntimeError as e:
+        raise SystemExit(f"the headline frame waited for the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return issue_ms
+
+
+def bench_phase(smi, grid, main_diffuse_ms):
+    """The port's bench program: the headline frame issued without a
+    synchronization (`issued_without_sync`); (a) `python3 -m
+    ovr_tpu_torch.bench` with no knobs (the 1024^3 bf16 1080p diffuse
+    headline, 3 + 10 frames) as a subprocess: exactly one stdout JSON
+    line with bench.py's four keys, its value within BENCH_TOL of
+    1920 * 1080 / the same frame's ms as `time_frames` times it on `grid`
+    just before (the main path's measurement, `main_diffuse_ms`, minutes
+    earlier, is reported beside it), K1 once a frame and no plain call;
+    (b) every other mode
+    of BENCH_MODES in process (a temporary book), each value finite and
+    positive; (c) K1's work on the headline's and BENCH_BREAKDOWN's
+    frames (`bench_breakdown`, after the counted runs). Returns
+    (results, K1 launches: the subprocess's and ranks' from their
+    reports, the in-process runs' counted from 0)."""
+    import tempfile
+    import torch
+    from ovr_tpu_torch import bench
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import accel
+    t0 = time.perf_counter()
+    scene = make_scene(grid, "bench", "persp")
+    mc = accel.build_macrocells(grid, scene.tfn.alpha,
+                                scene.tfn.value_range)
+    diffuse_frame_ms = time_frames([("diffuse", scene, "diffuse", False)],
+                                   mc)["diffuse"]["frame_ms"]
+    issue_ms = issued_without_sync(scene, mc)
+    log(f"bench: the headline frame issued with no host-device "
+        f"synchronization in {issue_ms:.2f} ms of host time "
+        f"(its frame {diffuse_frame_ms:.2f} ms); {smi}")
+    del scene, mc
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    p = subprocess.run([sys.executable, "-m", "ovr_tpu_torch.bench"],
+                       capture_output=True, text=True, cwd=root, env=env,
+                       timeout=BENCH_TIMEOUT)
+    out = p.stdout.strip().splitlines()
+    if p.returncode != 0 or len(out) != 1:
+        raise SystemExit(f"bench headline: exit {p.returncode}, "
+                         f"{len(out)} stdout lines\n{p.stderr[-3000:]}")
+    line = json.loads(out[0])
+    counts = BENCH_LAUNCHES.findall(p.stderr)
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or not counts:
+        raise SystemExit(f"bench headline: malformed output {out[0]}")
+    k1, k1_bf16, plain = (int(x) for x in counts[-1])
+    want = 1920 * 1080 / (diffuse_frame_ms * 1e-3)
+    ratio = line["value"] / want
+    head = dict(line=line, launches=k1, plain_calls=plain, ratio=ratio,
+                smoke_rays_s=want, smoke_frame_ms=diffuse_frame_ms,
+                issue_ms=issue_ms,
+                main_path_frame_ms=main_diffuse_ms,
+                ratio_to_main_path=line["value"] * main_diffuse_ms
+                / (1920 * 1080 * 1e3),
+                stderr=[x for x in p.stderr.splitlines()
+                        if x.startswith("bench")])
+    log(f"bench headline (subprocess, no knobs): {line['value']:.6e} "
+        f"rays/s, {ratio:.4f}x the {want:.6e} of time_frames' diffuse "
+        f"frame just before ({diffuse_frame_ms:.2f} ms; "
+        f"{head['ratio_to_main_path']:.4f}x the main path's, "
+        f"{main_diffuse_ms:.2f} ms); K1 launches {k1}, plain "
+        f"calls {plain}; metric '{line['metric']}', vs_baseline "
+        f"{line['vs_baseline']}; {smi}")
+    for x in head["stderr"]:
+        log(f"  {x}")
+    metric = ("forward rays/s (1024^3 bf16 grid, 1920x1080, diffuse "
+              "shading, shear-warp compositing)")
+    failed = [what for what, bad in (
+        (f"rays/s {ratio:.4f}x time_frames' (limit 1 +- {BENCH_TOL})",
+         abs(ratio - 1) > BENCH_TOL),
+        (f"K1 launches, bf16 launches, plain calls {(k1, k1_bf16, plain)} "
+         "against (13, 0, 0)", (k1, k1_bf16, plain) != (13, 0, 0)),
+        (f"metric {line['metric']!r} against {metric!r}",
+         line["metric"] != metric)) if bad]
+    if failed:
+        raise SystemExit("bench headline failed its checks: "
+                         + "; ".join(failed))
+    modes = {}
+    launches = k1
+    with tempfile.TemporaryDirectory() as tmp:
+        book = os.path.join(tmp, "book.json")
+        for label, knobs in BENCH_MODES:
+            torch.cuda.empty_cache()
+            swslice.LAUNCHES = swslice.LAUNCHES_BF16 = 0
+            res = bench.run(knobs, book=book)
+            n = swslice.LAUNCHES
+            if res["ranks"]:  # the launches of the ranks' processes
+                n = sum(r["launches"] for r in res["ranks"])
+            launches += n
+            modes[label] = bench_line(label, res, smi)
+            modes[label]["knobs"] = knobs
+            if res["ranks"]:
+                modes[label]["ranks"] = [
+                    {k: r[k] for k in ("rank", "device", "backend",
+                                       "seconds", "host_seconds",
+                                       "launches", "plain_calls",
+                                       "peak_bytes")} for r in res["ranks"]]
+    head["k1"] = bench_breakdown("headline", {}, smi)
+    for label in BENCH_BREAKDOWN:
+        modes[label]["k1"] = bench_breakdown(label, modes[label]["knobs"],
+                                             smi)
+    seconds = time.perf_counter() - t0
+    log(f"bench phase {seconds:.0f} s, {launches} K1 launches")
+    return dict(headline=head, modes=modes, seconds=seconds), launches
+
+
 PAR_N = 1024  # the headline volume's edge (ranks build it, or a slab)
 PAR_SHADINGS = ("none", "diffuse", "shadow")
 PAR_FRAMES = 3  # timed frames per rank and shading (after one warm-up)
@@ -4033,6 +4267,8 @@ def main() -> int:
     apps, apps_launches = apps_phase(smi)
     log(f"apps phase {apps['seconds']:.0f} s, {apps_launches} K1 launches "
         f"({time.perf_counter() - t0:.0f} s so far)")
+    bench_res, bench_launches = bench_phase(smi, big, head["frame_ms"])
+    log(f"{time.perf_counter() - t0:.0f} s so far")
     log("scene io and path tracing phases: " + ", ".join(
         f"{k} {v:.0f} s" for k, v in phase_s.items())
         + f" ({time.perf_counter() - t0:.0f} s so far)")
@@ -4093,6 +4329,12 @@ def main() -> int:
                     f"sequence {APPS_STEPS} x 1024^3 u8; viewer 512x512 and "
                     "1920x1080; examples at their own sizes",
         card=smi)}, default=str))
+    print(json.dumps({"bench": dict(
+        bench_res, shape="python3 -m ovr_tpu_torch.bench: 1024^3 bf16 "
+                         "(u8 under BENCH_STORE=u8), 1920x1080, rate 1024, "
+                         "auto, diffuse, macrocells on, 3 + 10 frames "
+                         "unless the knobs say otherwise",
+        card=smi)}, default=str))
     keys = ("kernel_ms", "frame_ms", "mrays_s", "bound_ms", "bound_by",
             "samples", "ops_per_sample", "share_of_bound", "band_plain_ms",
             "band_kernel_ms", "band_err", "peak_bytes", "registers",
@@ -4113,6 +4355,7 @@ def main() -> int:
             "launches_per_step"],
         "launches_parallel_ranks": par["launches"],
         "launches_apps": apps_launches,
+        "launches_bench": bench_launches,
         "launches_parallel_one_rank": sum(
             r["launches"] for r in par["nccl_one_rank"].values()),
         "parallel_brick_0_of_2_diffuse": {

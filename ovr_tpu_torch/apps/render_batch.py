@@ -113,7 +113,8 @@ def orbit_camera(camera: Camera, t: float) -> Camera:
 
 
 class HostStaging:
-    """Two reused host buffers between the prefetch thread and the device.
+    """Reused host buffers (two by default) between the prefetch thread
+    and the device.
 
     On a CUDA device the buffers are pinned and `upload` copies one to the
     card on a side stream. `fill` (the prefetch thread) first waits for
@@ -122,32 +123,33 @@ class HostStaging:
     hands its memory to another stream's pool) after that stream's
     earlier work, and returns it with the copy's end event, which the
     default stream waits on (`ready`) before it reads the tensor. On the
-    CPU each timestep keeps its own array and nothing is copied.
+    CPU each timestep keeps its own array and nothing is copied. Arrays
+    are numpy arrays or CPU tensors (a bf16 timestep).
     """
 
-    def __init__(self, first: np.ndarray, device):
+    def __init__(self, first, device, slots: int = 2):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
-        self._slots: list = [None, None]
+        self._slots: list = [None] * slots
         if self.cuda:
-            like = torch.from_numpy(first)
+            like = torch.as_tensor(first)
             self._slots = [torch.empty(like.shape, dtype=like.dtype,
-                                       pin_memory=True) for _ in range(2)]
-            self._freed = [None, None]  # the copy out of each buffer
+                                       pin_memory=True) for _ in range(slots)]
+            self._freed = [None] * slots  # the copy out of each buffer
             self.stream = torch.cuda.Stream(self.device)
 
-    def fill(self, slot: int, array: np.ndarray) -> None:
+    def fill(self, slot: int, array) -> None:
         if not self.cuda:
             self._slots[slot] = array
             return
         if self._freed[slot] is not None:
             self._freed[slot].synchronize()
-        self._slots[slot].copy_(torch.from_numpy(array))
+        self._slots[slot].copy_(torch.as_tensor(array))
 
     def upload(self, slot: int):
         """(device tensor, its copy's start and end events or None)."""
         if not self.cuda:
-            return torch.from_numpy(self._slots[slot]), None
+            return torch.as_tensor(self._slots[slot]), None
         src = self._slots[slot]
         dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))

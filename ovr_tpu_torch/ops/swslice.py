@@ -60,6 +60,7 @@ from ovr_tpu_torch.ops.adjoint import adjoint_sweep, over_scan
 
 LAUNCHES = 0  # kernel launches through `slice_composite`
 LAUNCHES_BF16 = 0  # of them, launches of the kernel's bf16 variant
+PLAIN_CALLS = 0  # runs of `slice_composite_plain`, on any device
 
 BLOCK_ROWS = 8  # fan rows per CUDA block (csrc/swslice.cu: BR)
 BLOCK_COLS = 32  # fan columns per CUDA block (csrc/swslice.cu: BC)
@@ -95,9 +96,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2,
 def _prepared_scalars(scalars, grid_dtype, pg, qg) -> torch.Tensor:
     """The caller's scalars with the slots this module owns filled in."""
     sc = scalars.to(torch.float32).clone()
-    sc[S_GS] = storage_scale(grid_dtype)
-    sc[S_DP] = pg[1] - pg[0] if pg.shape[0] > 1 else 1.0
-    sc[S_DQ] = qg[1] - qg[0] if qg.shape[0] > 1 else 1.0
+    # fills and device copies only: assigning a Python number copies it
+    # from the host, which waits for the stream
+    sc[S_GS].fill_(storage_scale(grid_dtype))
+    for slot, g in ((S_DP, pg), (S_DQ, qg)):
+        if g.shape[0] > 1:
+            sc[slot] = g[1] - g[0]
+        else:
+            sc[slot].fill_(1.0)
     sc[S_QLO] = qg[0]
     return sc
 
@@ -974,6 +980,8 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
     """The fused slice loop in PyTorch, arithmetic in the kernel's order
     and per-block skipping/termination as the kernel does them. Same
     arguments and result as `slice_composite` (without `stage_counts`)."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
     f32 = torch.float32
     grid_v = _streamed(grid_v, bf16)
     if mode == 0 or lights is None:

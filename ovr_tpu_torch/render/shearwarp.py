@@ -297,7 +297,8 @@ def _kernel_scalars(dt, device, *, lo1, ex1, lo2, ex2, e1, e2, dw1, dw2,
     def as_t(x):
         if isinstance(x, torch.Tensor):
             return x.to(device=device, dtype=dt).reshape(())
-        return torch.tensor(float(x), dtype=dt, device=device)
+        # a fill, not a host-to-device copy (which waits for the stream)
+        return torch.full((), float(x), dtype=dt, device=device)
 
     return torch.stack([as_t(x) for x in vals])
 
@@ -430,7 +431,7 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         # interior-eye trim: start at the plan's first plane that can
         # cover any ray interval (a bricked caller passes its own range)
         s0s = int(sw.slice0_static)
-        slice0 = torch.tensor(float(s0s), **opts)
+        slice0 = torch.full((), float(s0s), **opts)
         if n_slices_loc is None:
             n_slices_loc = sw.n_slices - s0s
     else:
@@ -473,11 +474,11 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
                                    direction[axis])
     else:
         dlam = 1.0
-        inv_da = torch.tensor(float(sign), **opts)
+        inv_da = torch.full((), float(sign), **opts)
 
     # ---- sample-plane schedule --------------------------------------------
     dz = ext[axis] / sw.n_slices
-    off = (torch.tensor(0.5, **opts) if jitter is None
+    off = (torch.full((), 0.5, **opts) if jitter is None
            else torch.as_tensor(jitter, **opts))
     jj = slice0 + torch.arange(n_loc, **opts)
     z_rel = (jj + off) * dz
@@ -546,7 +547,7 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         light_dir = safe_normalize(scene.light.direction)
         wtc = torch.stack([safe_normalize(horizontal),
                            safe_normalize(vertical), -direction])
-        wtcp = wtc[:, [w1, w2, axis]]
+        wtcp = torch.stack([wtc[:, w1], wtc[:, w2], wtc[:, axis]], dim=1)
         mode = 2 if (cfg.shading == "shadow"
                      and light_grid is not None) else 1
         lights, n_dir = _extra_lights_fan(scene, w1, w2, axis, dt)

@@ -760,3 +760,60 @@ def test_streamed_sequence_frames_are_the_serial_ones(tmp_path):
         serial.render()
         assert torch.equal(serial._frame.rgba, frames[k])
     assert not torch.equal(frames[0], frames[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [{}, {"BENCH_BF16": "1"},
+                                  {"BENCH_TIMEVAR": "3"},
+                                  {"BENCH_BACKWARD": "1"}],
+                         ids=["headline", "bf16", "timevar", "backward"])
+def test_bench_launches_the_kernel_once_a_frame(mode, tmp_path):
+    """The port's bench at a tiny headline on the card (64^3 bf16,
+    160x96, rate 64; 1 warm-up and 3 timed frames): the slice kernel ran
+    once a frame (the bf16 variant under BENCH_BF16), the plain version
+    never, and the value is finite with the cuda key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+    from ovr_tpu_torch import bench
+    env = dict(BENCH_GRID="64", BENCH_WIDTH="160", BENCH_HEIGHT="96",
+               BENCH_FRAMES="3", BENCH_WARMUP="1", BENCH_STORE="bf16",
+               **mode)
+    res = bench.run(env, book=str(tmp_path / "book.json"))
+    t = res["timing"]
+    assert (t.launches, t.plain_calls) == (4, 0)
+    assert t.launches_bf16 == (4 if mode.get("BENCH_BF16") else 0)
+    assert res["key"].startswith("cuda-64-160x96-64.0-diffuse-auto")
+    assert math.isfinite(res["line"]["value"]) and res["line"]["value"] > 0
+    assert res["line"]["vs_baseline"] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shading", ["none", "diffuse", "shadow"])
+def test_shearwarp_frame_never_waits_for_the_card(shading):
+    """A shear-warp frame on the card (macrocells, a passed-in lattice for
+    shadow) is issued without one host-device synchronization: no value
+    comes to the host and no Python number is copied to the card, so the
+    host issues the next frame while the slice kernel runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ovr_tpu_torch.render import accel
+    scene = _scene("smooth", "bf16", n=48, device="cuda")
+    cfg = api.RenderConfig(width=96, height=64, sampling_rate=48.0,
+                           shading=shading, method="auto").resolved(scene)
+    assert cfg.sw is not None
+    mc = accel.build_macrocells(scene.volume.grid, scene.tfn.alpha,
+                                scene.tfn.value_range)
+    lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
+          else None)
+    with torch.no_grad():
+        api.render(scene, cfg, macrocells=mc, light_grid=lg)
+        torch.cuda.synchronize()
+        before = swslice.LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            frame = api.render(scene, cfg, macrocells=mc, light_grid=lg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert swslice.LAUNCHES == before + 1
+    assert torch.isfinite(frame.rgba).all()
