@@ -8,18 +8,18 @@
    table), the registers and spills ptxas reports;
 3. holds the slice kernel against its plain PyTorch version on the card
    for modes 0/1/2, both gradient stencils, skipping and termination on
-   and off, f32/bf16/u8 grids, perspective, orthographic and principal-x
-   cameras (the last with strided fan columns), at 64^3 and 256^3 and on
-   the 1024^3 headline volume at 240x135 (the last and a 256^3 frame at
-   64x36 with fans so coarse that the tiles' footprints exceed the slab
-   windows), with light tables of directional and point lights, and in
-   the bf16 variant (f32 grids read as bf16 or, at 60 rows, as f32;
-   bf16 and u8 grids; staged windows and direct taps); in each case it
-   also runs the kernel's counting variant, which must give the same
-   bits, and holds the planes per block and the samples each pixel needs
-   against the plain version's counts, and the planes sampled from staged
-   slab windows or straight from the grid against the path the case must
-   take;
+   and off, f32/bf16/u8/u16 grids, perspective, orthographic and
+   principal-x cameras (the last with strided fan columns), at 64^3 and
+   256^3 and on the 1024^3 headline volume at 240x135 (the last and a
+   256^3 frame at 64x36 with fans so coarse that the tiles' footprints
+   exceed the slab windows), with light tables of directional and point
+   lights, and in the bf16 variant (f32 grids read as bf16 or, at 60
+   rows, as f32; bf16, u8 and u16 grids; staged windows and direct
+   taps); in each case it also runs the kernel's counting variant, which
+   must give the same bits, and holds the planes per block and the
+   samples each pixel needs against the plain version's counts, and the
+   planes sampled from staged slab windows or straight from the grid
+   against the path the case must take;
 4. renders the headline frame through `api.render`: a 1024^3 bf16 volume
    (bench.py's synthetic field, built on the card), 1920x1080, 1024
    planes, macrocell skipping on, in diffuse, none and shadow shading and
@@ -33,7 +33,10 @@
    dynamic shared memory and blocks per SM
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); then holds the
    kernel against its plain version on each frame's own inputs, cut to a
-   band of 64 fan rows with all columns, and times both there;
+   band of 64 fan rows with all columns, and times both there; then the
+   same field as a 1024^3 u16 grid (round(field * 65535), 2.15 GB) in
+   diffuse, none and shadow (the f32 function on 16-bit storage, its
+   launches counted apart), timed and held so;
 5. takes gradients through `api.render` (the slice kernel forward with
    termination off, the analytic adjoint backward): at 64^3 f32 (bench
    and sparse fields, perspective and orthographic, none/diffuse/shadow,
@@ -46,7 +49,7 @@
    mean(grad^2), gradients of the grid and the TF alpha), prints ms per
    step, Mrays/s, peak memory and launches per step, checks the
    gradients and holds the TF alpha's against a central directional
-   difference; then splits a reverse sweep (the diffuse frame cut to 32
+   difference; then splits a reverse sweep (the diffuse frame cut to 16
    planes) into device and host time with torch.profiler;
 6. runs the ray march (plain PyTorch; the JAX package's march is XLA):
    (a) at 64^3 (bench and sparse fields; perspective, orthographic and
@@ -69,7 +72,9 @@
    as a 1 GiB UNSIGNED_BYTE raw with a VIDI3D JSON and a USDA settings
    file, loads both onto the card through `io.create_scene`, renders
    them through `Renderer` (1080p, auto, diffuse; the slice kernel once
-   a frame) bit for bit against a directly built scene; holds both path
+   a frame) bit for bit against a directly built scene, and the same
+   for the field as a 2 GiB UNSIGNED_SHORT raw (the grid arrives as
+   uint16); holds both path
    tracers card against CPU at 64^3 (MC with the global majorant and the
    macrocell DDA from a CPU generator's draws; the dense solver's
    fields, its gather on the card's own inputs, its frames, also under
@@ -146,9 +151,20 @@
    headline's, the eye inside's and the opaque frames' inputs;
 12. prints one JSON line each of backward, march, surfaces, scene-file
    and path-tracing, parallel, neural, apps, bench and kernel
-   measurements (the kernel line with an entry for the f32 function and
-   one for its bf16 variant), then, last, the device line {"ok": true,
-   "device": {...}}.
+   measurements (the kernel line with an entry for the f32 function,
+   with a block for 16-bit storage, and one for its bf16 variant), then,
+   last, the device line {"ok": true, "device": {...}}. Each phase logs
+   "phase <name>: <seconds>" when it ends, and a JSON line before the
+   kernel line holds them all.
+
+Steps 6 (a) and 7's path-tracing cases at 64^3 (card against CPU, and
+dense against MC) run first, while nvcc builds the kernel (2): they
+launch no kernel. The card-against-CPU gradients of 5 and the surface
+and multi-volume cases at 64^3 run in this process while the ranks of 9
+(c, d) run in theirs. The headline's timed frames and steps that the
+bench phase (11) times at the same shape run once in the earlier
+phases, for their checks: the backward step per shading, the march
+frames, the path-traced frames and the neural train step.
 
 Exits non-zero without a CUDA device, without the repository beside it,
 or when any phase fails. Imports neither JAX nor the JAX package.
@@ -156,6 +172,7 @@ or when any phase fails. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -163,6 +180,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 # f32 operations per sample that the slice function needs, counted from
@@ -234,6 +252,14 @@ def field(n, kind, device, z_rows=None):
         z = z[z_rows.to(device)]
     return torch.exp(-((x - 0.7) ** 2 + (y - 0.3) ** 2
                        + (z - 0.6) ** 2) * 120)
+
+
+def quantized(g, dt):
+    """A field in [0, 1] as normalized-integer counts: "u8" round(g * 255),
+    "u16" round(g * 65535)."""
+    import torch
+    top, dtype = {"u8": (255, torch.uint8), "u16": (65535, torch.uint16)}[dt]
+    return torch.clamp(torch.round(g * top), 0, top).to(dtype)
 
 
 CAMERAS = {
@@ -338,6 +364,13 @@ def compare(out, ref, term):
 
 
 PTX_TYPES = {"f": "f32", "6bf16_t": "bf16", "h": "u8", "t": "u16"}
+
+
+def storage(grid):
+    """The name of a grid's storage type, as PTX_TYPES names it."""
+    import torch
+    return {torch.float32: "f32", torch.bfloat16: "bf16", torch.uint8: "u8",
+            torch.uint16: "u16"}[grid.dtype]
 
 
 def ptxas_summary(text):
@@ -472,6 +505,24 @@ PARITY_CASES = [
      (0, 0), True, "direct"),
     (256, "f32", "bench", "shadow", True, True, True, "persp", 64, 36,
      (1, 1), True, "some direct"),
+    # 16-bit storage: each mode, a light table, direct and some direct
+    # taps, the bf16 variant
+    (64, "u16", "bench", "none", True, False, True, "persp", 160, 90,
+     (0, 0), False, "staged"),
+    (64, "u16", "sparse", "diffuse", False, True, False, "ortho", 240, 135,
+     (0, 0), False, "staged"),
+    (256, "u16", "opaque", "shadow", True, True, True, "back", 480, 270,
+     (0, 0), False, "staged"),
+    (64, "u16", "bench", "shadow", True, False, False, "persp", 160, 90,
+     (2, 1), False, "staged"),
+    (256, "u16", "bench", "diffuse", True, True, True, "side", 480, 270,
+     (0, 0), False, "direct"),
+    (256, "u16", "bench", "shadow", True, True, True, "persp", 64, 36,
+     (0, 0), False, "some direct"),
+    (64, "u16", "bench", "diffuse", True, False, False, "persp", 240, 135,
+     (0, 0), True, "staged"),
+    (256, "u16", "sparse", "shadow", False, True, True, "ortho", 480, 270,
+     (1, 1), True, "staged"),
 ]
 
 
@@ -493,6 +544,8 @@ EXIT_CASES = [
      (0, 0), True, "staged"),
     (256, "f32", "bench", "shadow", True, True, True, "persp", 480, 270,
      (0, 0), True, "staged"),
+    (64, "u16", "opaque", "diffuse", True, True, True, "back", 160, 90,
+     (1, 0), False, "staged"),
 ]
 
 
@@ -705,10 +758,11 @@ def kernel_alone(results, mc, card, regs):
         occ = swslice.kernel_occupancy(args[0], mode, fd, args[1].shape[0],
                                        args[6], axial_flip=kw["axial_flip"],
                                        bf16=bf16, n_lights=n_lt)
-        reg = regs[("bf16", mode, fd, False, bf16, n_lt > 0)]
+        st = storage(args[0])
+        reg = regs[(st, mode, fd, False, bf16, n_lt > 0)]
         r.update(occ, registers=reg[0], spill_bytes=reg[1] + reg[2],
-                 lights=n_lt)
-        variant = (f"bf16 storage mode {mode} fd={fd:d}"
+                 lights=n_lt, storage=st)
+        variant = (f"{st} storage mode {mode} fd={fd:d}"
                    f"{' bf16' if bf16 else ''}"
                    f"{f' lights ({n_lt})' if n_lt else ''}")
         log(f"kernel {label}: {variant} variant, "
@@ -719,7 +773,7 @@ def kernel_alone(results, mc, card, regs):
             f"from the grid {direct}; planes composited {r['block_planes']}")
         band_check(label, r, args, kw, full)
         mrays = 1920 * 1080 / (r["frame_ms"] * 1e-3) / 1e6
-        log(f"headline {label:14s} 1920x1080 1024^3 bf16 storage: frame "
+        log(f"headline {label:14s} 1920x1080 1024^3 {st} storage: frame "
             f"{r['frame_ms']:.2f} ms ({mrays:.2f} Mrays/s), kernel "
             f"{r['kernel_ms']:.2f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}; {r['samples']:.4e} samples needed of "
@@ -783,6 +837,44 @@ def main_path(grid, card, regs):
     kernel_alone(f32, mc, card, regs)
     kernel_alone(b16, mc, card, regs)
     return f32, launches, b16, launches_bf16, vs
+
+
+# (label, shading) of the 16-bit storage headline
+U16_HEADLINES = (("diffuse u16", "diffuse"), ("none u16", "none"),
+                 ("shadow u16", "shadow"))
+
+
+def u16_headline(card, regs):
+    """The headline frame on 16-bit storage: bench.py's field at 1024^3
+    as u16 counts (round(field * 65535), 2.15 GB, built on the card and
+    freed after), through api.render in diffuse, none and shadow (the f32
+    function reading u16), each frame checked and timed (`time_frames`),
+    the launches counted from 0 just before and read just after; then
+    the kernel alone on each frame's inputs, its bound (2 bytes a voxel)
+    and a band of those inputs against the plain version (`kernel_alone`).
+    Returns the results and the launches."""
+    import torch
+    from ovr_tpu_torch.ops import swslice
+    from ovr_tpu_torch.render import accel
+    grid = quantized(field(1024, "bench", "cuda"), "u16")
+    scene = make_scene(grid, "bench", "persp")
+    mc = accel.build_macrocells(grid, scene.tfn.alpha, scene.tfn.value_range)
+    swslice.LAUNCHES = swslice.LAUNCHES_BF16 = 0
+    res = time_frames([(label, scene, shading, False)
+                       for label, shading in U16_HEADLINES], mc)
+    launches = swslice.LAUNCHES
+    if swslice.LAUNCHES_BF16 or launches != len(U16_HEADLINES) * (
+            1 + WARMUP + FRAMES):
+        raise SystemExit(f"u16 headline: {launches} launches of the f32 "
+                         f"function, {swslice.LAUNCHES_BF16} of the bf16 "
+                         f"variant")
+    kernel_alone(res, mc, card, regs)
+    for r in res.values():  # they hold the 2.15 GB grid
+        for k in ("scene", "cfg", "lg"):
+            del r[k]
+    del scene, mc, grid
+    torch.cuda.empty_cache()
+    return res, launches
 
 
 def band_check(label, r, args, kw, full):
@@ -973,12 +1065,11 @@ FD_EPS = 1e-2  # step of the directional difference in the TF alpha
 def backward_headline(grid, smi):
     """The headline frame's backward (bench.py's BENCH_BACKWARD loss,
     gradients of the grid and the TF alpha) per shading, and in diffuse
-    under sw_bf16 (BENCH_BF16=1): 1 timed step each, after 1 warm-up step
-    before the first (a step takes 14-32 s; since the march phase the run
-    keeps within its time by timing one, and since the neural phase the
-    first warm-up serves all four), CUDA events around the forward and
-    the backward; checks the gradients and holds the TF alpha's against
-    a central directional difference."""
+    under sw_bf16 (BENCH_BF16=1): one step each, CUDA events around the
+    forward and the backward (the first step of the run is cold: the
+    bench phase times the warm diffuse step, BENCH_BACKWARD=1); checks
+    the gradients and holds the TF alpha's against a central directional
+    difference."""
     import torch
     from ovr_tpu_torch import api
     from ovr_tpu_torch.ops import swslice
@@ -999,27 +1090,16 @@ def backward_headline(grid, smi):
                 lg = api.build_light_grid(scene, cfg)
         kw = dict(macrocells=mc, light_grid=lg)
         n0, b0 = swslice.LAUNCHES, swslice.LAUNCHES_BF16
-        warm = not results  # one warm-up step, before the first mode
-        first_s = None
-        if warm:
-            t0 = time.perf_counter()
-            loss_and_grads(scene, cfg, ("grid", "alpha"), **kw)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-        steps = 1
         torch.cuda.reset_peak_memory_stats()
-        fwd, bwd = [], []
-        for _ in range(steps):
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss, g, marks = loss_and_grads(scene, cfg, ("grid", "alpha"),
-                                            **kw)
-            torch.cuda.synchronize()
-            fwd.append(start.elapsed_time(marks[0]))
-            bwd.append(marks[0].elapsed_time(marks[1]))
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, g, marks = loss_and_grads(scene, cfg, ("grid", "alpha"), **kw)
+        torch.cuda.synchronize()
+        fwd = [start.elapsed_time(marks[0])]
+        bwd = [marks[0].elapsed_time(marks[1])]
         peak = torch.cuda.max_memory_allocated()
-        launches = (swslice.LAUNCHES - n0) / (warm + steps)
-        launches_bf16 = (swslice.LAUNCHES_BF16 - b0) / (warm + steps)
+        launches = swslice.LAUNCHES - n0
+        launches_bf16 = swslice.LAUNCHES_BF16 - b0
         gg, ga = g["grid"], g["alpha"]
         finite = bool(torch.isfinite(gg).all() and torch.isfinite(ga).all())
         nonzero = bool(gg.abs().max() > 0 and ga.abs().max() > 0)
@@ -1040,17 +1120,16 @@ def backward_headline(grid, smi):
         fd_err = abs(fd - an) / max(abs(an), 1e-30)
         step_ms = [a + b for a, b in zip(fwd, bwd)]
         med = sorted(step_ms)[len(step_ms) // 2]
-        r = dict(step_ms=step_ms, fwd_ms=fwd, bwd_ms=bwd, steps=steps,
-                 first_step_s=first_s,
+        r = dict(step_ms=step_ms, fwd_ms=fwd, bwd_ms=bwd, steps=1,
+                 first_of_run=not results,
                  mrays_s=1920 * 1080 * cfg.spp / (med * 1e-3) / 1e6,
                  peak_bytes=peak, launches_per_step=launches,
                  grid_grad=f"{gg.dtype} {tuple(gg.shape)}",
                  loss=float(loss), fd=fd, analytic=an, fd_rel_err=fd_err)
         results[label] = r
         log(f"backward headline {label:12s} 1920x1080 1024^3 bf16: step "
-            f"{', '.join(f'{x:.0f}' for x in step_ms)} ms ({steps} timed "
-            f"step{'s' if steps > 1 else ''}"
-            f"{f' after a warm-up of {first_s:.1f} s' if warm else ''}; "
+            f"{', '.join(f'{x:.0f}' for x in step_ms)} ms (one step"
+            f"{', the first of the run' if r['first_of_run'] else ''}; "
             f"forward {', '.join(f'{x:.1f}' for x in fwd)} ms, backward "
             f"{', '.join(f'{x:.0f}' for x in bwd)} ms), {r['mrays_s']:.3f} "
             f"Mrays/s fwd+bwd, peak memory {peak / 2**30:.2f} GiB, "
@@ -1067,7 +1146,7 @@ def backward_headline(grid, smi):
     return results, swslice.LAUNCHES, scene, mc
 
 
-PROFILE_PLANES = 32  # planes of the profiled sweep (reading a profile
+PROFILE_PLANES = 16  # planes of the profiled sweep (reading a profile
 # costs ~0.1 ms per event on the host, ~1000 events per plane)
 
 
@@ -1099,8 +1178,11 @@ def backward_profile(scene, mc):
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    kernels = [e for e in prof.key_averages() if e.device_type ==
-               DeviceType.CUDA and e.device_time_total > 0]
+    # one pass over the events (each costs host time): grouped by input
+    # shapes, where kernels, which have none, form one group a name
+    groups = prof.key_averages(group_by_input_shape=True)
+    kernels = [e for e in groups if e.device_type == DeviceType.CUDA
+               and e.device_time_total > 0]
     busy = sum(e.device_time_total for e in kernels) / 1e3
     top_kernels = sorted(((e.device_time_total / 1e3, e.count, e.key)
                           for e in kernels), reverse=True)[:8]
@@ -1108,7 +1190,7 @@ def backward_profile(scene, mc):
     # (an op's children included: nested ops count in both)
     ops = sorted(((e.device_time_total / 1e3, e.count,
                    e.cpu_time_total / 1e3, e.key, str(e.input_shapes))
-                  for e in prof.key_averages(group_by_input_shape=True)
+                  for e in groups
                   if e.device_type == DeviceType.CPU
                   and e.key.startswith("aten::")), reverse=True)[:12]
     n_launch = sum(e.count for e in kernels)
@@ -1332,10 +1414,11 @@ def march_profile(scene, mc, steps):
 def march_headline(grid, smi):
     """Phase (b): the headline volume through method="march" at 1920x1080,
     rate 1024, in diffuse and in shadow (the lattice built once, as
-    bench.py does): 1 warm-up and 3 timed frames (1 if a frame takes
-    over 5 s) with CUDA events, peak memory, the steps the loop ran;
-    launches per frame and the device/host split from torch.profiler on
-    the frame cut to 16 and 32 steps."""
+    bench.py does): one checked frame each, timed with CUDA events (the
+    bench phase times the warm diffuse frame, BENCH_METHOD=march), its
+    peak memory and the steps the loop ran; launches per frame and the
+    device/host split from torch.profiler on the frame cut to 16 and 32
+    steps."""
     import torch
     from ovr_tpu_torch import api
     from ovr_tpu_torch.render import accel
@@ -1364,31 +1447,28 @@ def march_headline(grid, smi):
             with torch.no_grad():
                 lg = api.build_light_grid(scene, cfg)
         n0 = ig.STEPS
-        t0 = time.perf_counter()
-        frame = api.render(scene, cfg, macrocells=mc, light_grid=lg)
         torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+        frame = api.render(scene, cfg, macrocells=mc, light_grid=lg)
+        marks[1].record()
+        torch.cuda.synchronize()
+        ms = [marks[0].elapsed_time(marks[1])]
+        peak = torch.cuda.max_memory_allocated()
         steps = ig.STEPS - n0
         check_frame(f"march {shading}", frame, 1920, 1080)
         alpha_mean = float(frame.rgba[..., 3].mean())
         del frame
-        reps = 3 if first_s <= 5.0 else 1
-        torch.cuda.reset_peak_memory_stats()
-        ms = []
-        for _ in range(reps):
-            ms.append(cuda_ms(lambda: api.render(
-                scene, cfg, macrocells=mc, light_grid=lg), 1))
-        peak = torch.cuda.max_memory_allocated()
-        med = sorted(ms)[len(ms) // 2]
-        r = dict(frame_ms=ms, first_s=first_s, steps=steps,
+        med = ms[0]
+        r = dict(frame_ms=ms, steps=steps,
                  max_steps=cfg.max_steps, peak_bytes=peak,
                  mrays_s=1920 * 1080 / (med * 1e-3) / 1e6,
                  launches_per_frame=setup + per_step * steps,
                  alpha_mean=alpha_mean)
         results[shading] = r
         log(f"march headline {shading:7s} 1920x1080 1024^3 bf16 rate 1024: "
-            f"frame {', '.join(f'{x:.0f}' for x in ms)} ms ({reps} timed "
-            f"after a warm-up of {first_s:.1f} s), {r['mrays_s']:.3f} "
+            f"frame {ms[0]:.0f} ms (one checked frame), {r['mrays_s']:.3f} "
             f"Mrays/s, {steps} steps run of {cfg.max_steps}, ~"
             f"{r['launches_per_frame']:.0f} launches a frame ({per_step:g} "
             f"a step), peak memory {peak / 2**30:.2f} GiB, mean alpha "
@@ -1935,14 +2015,16 @@ def sparse_headline(grid, smi):
 # ---------------------------------------------------------------------------
 
 IO_FRAMES = 5  # timed Renderer frames of a loaded scene (after a warm-up)
-PT_DENSE_FRAMES = 5  # timed dense path-traced frames (after a warm-up)
-PT_MC_FRAMES = 2  # timed Monte-Carlo frames at 1080p
 # the bench.py camera in a VIDI3D file (world box [0, 1]^3 by "scales")
 BENCH_LIGHT = (-907.108, 2205.875, -400.0267)  # toward the light
 
 
-def scene_files(grid_u8, tmp):
-    """bench.py's field as an UNSIGNED_BYTE raw file with a VIDI3D JSON
+RAW_TYPES = {"u8": "UNSIGNED_BYTE", "u16": "UNSIGNED_SHORT"}
+
+
+def scene_files(grid, tmp):
+    """bench.py's field as an UNSIGNED_BYTE (or, for a u16 grid,
+    UNSIGNED_SHORT) little-endian raw file with a VIDI3D JSON
     (scales 1/n: the world box [0, 1]^3; the bench camera; a 256-entry
     base64 alpha table (its ends above 0.01 or 0, which the reader's
     end-bin cleanup keeps) and colour controls at the table's sample
@@ -1952,9 +2034,9 @@ def scene_files(grid_u8, tmp):
     away from the light). Returns (raw, json, usda paths, color, alpha)."""
     import base64
     import numpy as np
-    n = grid_u8.shape[0]
+    n = grid.shape[0]
     raw = os.path.join(tmp, "field.raw")
-    grid_u8.cpu().numpy().tofile(raw)
+    grid.cpu().numpy().tofile(raw)
     k = 256
     alpha = np.linspace(0.0, 1.0, k, dtype=np.float32) ** 1.2
     x = (np.arange(k) + 0.5) / k
@@ -1964,7 +2046,8 @@ def scene_files(grid_u8, tmp):
         "version": "VIDI3D",
         "dataSource": [{
             "format": "REGULAR_GRID_RAW_BINARY", "fileName": ["field.raw"],
-            "dimensions": {"x": n, "y": n, "z": n}, "type": "UNSIGNED_BYTE",
+            "dimensions": {"x": n, "y": n, "z": n},
+            "type": RAW_TYPES[storage(grid)],
             "offset": 0, "endian": "LITTLE_ENDIAN",
             "scales": {"x": 1 / n, "y": 1 / n, "z": 1 / n}}],
         "view": {
@@ -2024,18 +2107,20 @@ def "scene" {{
     return raw, js, usda, color, alpha
 
 
-def scene_io(smi):
+def scene_io(smi, dt="u8"):
     """Scene files on the card: bench.py's field at 1024^3 written as a
-    1 GiB UNSIGNED_BYTE raw with a VIDI3D JSON and a USDA settings file
-    (`scene_files`, in a temporary directory removed after), each loaded
-    through `io.create_scene(..., device="cuda")` (load time printed).
-    The grid must arrive as uint8 on the card, equal to `np.fromfile` of
-    the file. The JSON scene renders through `Renderer` at 1920x1080,
-    method="auto", diffuse, macrocells on: frame ms (IO_FRAMES after a
-    warm-up), Mrays/s, peak memory; the slice kernel launched once a
-    frame (counts set to 0 just before, read after), its plain version
-    never. The frame must equal, bit for bit, `api.render` of a scene
-    built directly from the same arrays, and the USDA scene's frame."""
+    raw of `dt` counts (`quantized`: "u8" a 1 GiB UNSIGNED_BYTE raw,
+    "u16" a 2 GiB UNSIGNED_SHORT one) with a VIDI3D JSON and, for u8, a
+    USDA settings file (`scene_files`, in a temporary directory removed
+    after), each loaded through `io.create_scene(..., device="cuda")`
+    (load time printed). The grid must arrive in its type on the card,
+    equal to `np.fromfile` of the file. The JSON scene renders through
+    `Renderer` at 1920x1080, method="auto", diffuse, macrocells on:
+    frame ms (IO_FRAMES after a warm-up), Mrays/s, peak memory; the
+    slice kernel launched once a frame (counts set to 0 just before,
+    read after), its plain version never. The frame must equal, bit for
+    bit, `api.render` of a scene built directly from the same arrays,
+    and the USDA scene's frame."""
     import shutil
     import tempfile
     import numpy as np
@@ -2045,31 +2130,32 @@ def scene_io(smi):
                                           StructuredVolume, TransferFunction)
     from ovr_tpu_torch.ops import swslice
     from ovr_tpu_torch.render import accel
-    n = 1024
-    g = field(n, "bench", "cuda")
-    grid = torch.clamp(torch.round(g * 255), 0, 255).to(torch.uint8)
-    del g
+    grid = quantized(field(1024, "bench", "cuda"), dt)
+    on_file = {"u8": np.uint8, "u16": np.dtype("<u2")}[dt]
+    bits = {"u8": torch.int8, "u16": torch.int16}[dt]  # compared as these
     tmp = tempfile.mkdtemp(prefix="ovr_scene_")
     try:
         t0 = time.perf_counter()
         raw, js, usda, color, alpha = scene_files(grid, tmp)
         write_s = time.perf_counter() - t0
         scenes, load_s = {}, {}
-        for label, path in (("vidi3d", js), ("usda", usda)):
+        for label, path in (("vidi3d", js), ("usda", usda))[
+                :2 if dt == "u8" else 1]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             scenes[label] = io.create_scene(path, device="cuda")
             torch.cuda.synchronize()
             load_s[label] = time.perf_counter() - t0
-        on_disk = torch.from_numpy(np.fromfile(raw, np.uint8)).cuda()
+        on_disk = torch.from_numpy(np.fromfile(raw, on_file)).cuda()
     finally:
         shutil.rmtree(tmp)
     for label, sc in scenes.items():
         gl = sc.volume.grid
-        if not (gl.dtype == torch.uint8 and gl.is_cuda
-                and torch.equal(gl.reshape(-1), on_disk)):
+        if not (gl.dtype == grid.dtype and gl.is_cuda
+                and torch.equal(gl.reshape(-1).view(bits),
+                                on_disk.view(bits))):
             raise SystemExit(f"scene io: the {label} grid is not the file's "
-                             f"bytes as uint8 on the card")
+                             f"values as {grid.dtype} on the card")
     del on_disk
     scene = scenes["vidi3d"]
     rate = float(scene.volume_sampling_rate)
@@ -2099,25 +2185,30 @@ def scene_io(smi):
     mc = accel.build_macrocells(grid, direct.tfn.alpha,
                                 direct.tfn.value_range)
     ref = api.render(direct, r._cfg, macrocells=mc)
-    ru = api.Renderer(scenes["usda"], r._cfg)
-    ru.render()
+    frames = {"direct": r._frame}
+    if "usda" in scenes:
+        ru = api.Renderer(scenes["usda"], r._cfg)
+        ru.render()
+        frames["usda"] = ru._frame
     same = {k: all(torch.equal(getattr(f, c), getattr(ref, c))
                    for c in ("rgba", "grad", "depth"))
-            for k, f in (("direct", r._frame), ("usda", ru._frame))}
+            for k, f in frames.items()}
     res = dict(write_s=write_s, load_s=load_s, frame_ms=frame_ms,
                mrays_s=1920 * 1080 / (frame_ms * 1e-3) / 1e6,
                peak_bytes=peak, launches=launches,
                bit_identical=same, axis=r._cfg.sw.axis,
                alpha_mean=float(ref.rgba[..., 3].mean()))
-    log(f"scene io 1024^3 u8 (1 GiB raw): written in {write_s:.1f} s, "
-        f"loaded onto the card in {load_s['vidi3d']:.2f} s (VIDI3D JSON) "
-        f"and {load_s['usda']:.2f} s (USDA), uint8, equal to the file; "
-        f"Renderer 1920x1080 auto diffuse: frame {frame_ms:.2f} ms, "
-        f"{res['mrays_s']:.2f} Mrays/s, peak memory {peak / 2**30:.2f} GiB, "
-        f"{launches} kernel launches for {1 + IO_FRAMES} frames, no plain "
-        f"call; bit for bit against a directly built scene: "
-        f"{'yes' if same['direct'] else 'NO'}, the USDA scene's frame: "
-        f"{'yes' if same['usda'] else 'NO'}; {smi}")
+    gib = grid.numel() * grid.element_size() / 2**30
+    log(f"scene io 1024^3 {dt} ({gib:.0f} GiB {RAW_TYPES[dt]} raw): "
+        f"written in {write_s:.1f} s, loaded onto the card in " + " and ".join(
+            f"{v:.2f} s ({k})" for k, v in load_s.items())
+        + f", {grid.dtype}, equal to the file; Renderer 1920x1080 auto "
+        f"diffuse: frame {frame_ms:.2f} ms, {res['mrays_s']:.2f} Mrays/s, "
+        f"peak memory {peak / 2**30:.2f} GiB, {launches} kernel launches "
+        f"for {1 + IO_FRAMES} frames, no plain call; bit for bit against "
+        f"a directly built scene: {'yes' if same['direct'] else 'NO'}"
+        + (f", the USDA scene's frame: {'yes' if same['usda'] else 'NO'}"
+           if "usda" in same else "") + f"; {smi}")
     if not all(same.values()):
         raise SystemExit("scene io: a loaded scene renders other bits than "
                          "the directly built one")
@@ -2318,11 +2409,12 @@ def check_pt_frame(label, frame, scene, cfg, dense):
 def pt_headline(grid, smi):
     """Path tracing at the headline: the 1024^3 bf16 volume, 1920x1080,
     the bench camera, through `api.render`. Dense (BENCH_PT=dense):
-    `prepare` timed once, then PT_DENSE_FRAMES frames after a warm-up
-    (CUDA events). MC (BENCH_PT=mc: macrocell DDA, spp 1): a warm-up at
-    240x135, then PT_MC_FRAMES timed frames at 1080p, with the tracker's
+    `prepare` timed once, then one checked frame (CUDA events). MC
+    (BENCH_PT=mc: macrocell DDA, spp 1): a frame at 240x135 under the
+    profiler, then one checked frame at 1080p, with the tracker's
     iterations per level. Each: ms, Mrays/s, peak memory, the frame
-    checks; no frame runs the slice loop."""
+    checks; no frame runs the slice loop. The bench phase times both
+    warm (BENCH_PT=dense, mc: 1 + 2 frames)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2340,13 +2432,15 @@ def pt_headline(grid, smi):
         torch.cuda.synchronize()
         prep_ms = (time.perf_counter() - t0) * 1e3
         prep_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
         frame = api.render(scene, cfg, pt_fields=fields)
+        marks[1].record()
         torch.cuda.synchronize()
+        ms = marks[0].elapsed_time(marks[1])
         alpha_box = check_pt_frame("pt dense", frame, scene, cfg, True)
         del frame
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: api.render(scene, cfg, pt_fields=fields),
-                     PT_DENSE_FRAMES)
         res["dense"] = dict(
             prepare_ms=prep_ms, prepare_peak_bytes=prep_peak, frame_ms=ms,
             mrays_s=1920 * 1080 / (ms * 1e-3) / 1e6,
@@ -2357,12 +2451,12 @@ def pt_headline(grid, smi):
             f"{fields[0].shape[0]}^3, 14 directions, 12 levels, "
             f"{cfg.sw.n_slices} planes): prepare {prep_ms:.0f} ms (peak "
             f"{prep_peak / 2**30:.2f} GiB), frame {ms:.1f} ms "
-            f"({PT_DENSE_FRAMES} after a warm-up), "
+            f"(the first after prepare), "
             f"{res['dense']['mrays_s']:.2f} Mrays/s, peak memory "
             f"{res['dense']['peak_bytes'] / 2**30:.2f} GiB; {smi}")
         del fields
-        # the warm-up frame (240x135) under torch.profiler: launches
-        # per tracker iteration
+        # a 240x135 frame under torch.profiler: launches per tracker
+        # iteration
         small = pt_cfg(scene, 240, 135, 1024.0, False)
         pathtracer.LEVEL_STEPS.clear()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2374,19 +2468,16 @@ def pt_headline(grid, smi):
         cfg = pt_cfg(scene, 1920, 1080, 1024.0, False)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times, levels = [], []
-        for i in range(PT_MC_FRAMES):
-            pathtracer.LEVEL_STEPS.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            frame = api.render(scene, cfg, frame_index=i + 1, macrocells=mc)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            levels.append(list(pathtracer.LEVEL_STEPS))
-            alpha_box = check_pt_frame("pt mc", frame, scene, cfg, False)
-            rgb_mean = float(frame.rgba[..., :3].mean())
-            del frame
-        med = sorted(times)[len(times) // 2]
+        pathtracer.LEVEL_STEPS.clear()
+        t0 = time.perf_counter()
+        frame = api.render(scene, cfg, frame_index=1, macrocells=mc)
+        torch.cuda.synchronize()
+        times = [(time.perf_counter() - t0) * 1e3]
+        levels = [list(pathtracer.LEVEL_STEPS)]
+        check_pt_frame("pt mc", frame, scene, cfg, False)
+        rgb_mean = float(frame.rgba[..., :3].mean())
+        del frame
+        med = times[0]
         res["mc"] = dict(frame_ms=times, mrays_s=1920 * 1080 / (med * 1e-3)
                          / 1e6, iterations_per_level=levels,
                          max_track_steps=max(cfg.max_steps * 2, 64),
@@ -2400,7 +2491,7 @@ def pt_headline(grid, smi):
             f" ms, {res['mc']['mrays_s']:.3f} Mrays/s, tracker iterations "
             f"per level {levels} (bound {res['mc']['max_track_steps']}), "
             f"peak memory {res['mc']['peak_bytes'] / 2**30:.2f} GiB, mean "
-            f"rgb {rgb_mean:.4f}; the 240x135 warm-up: {launches} kernel "
+            f"rgb {rgb_mean:.4f}; the 240x135 frame: {launches} kernel "
             f"launches in {small_iters} iterations "
             f"({res['mc']['launches_per_iteration']:.1f} an iteration, the "
             f"frame's setup included); {smi}")
@@ -2652,6 +2743,7 @@ def neural_headline(grid, smi):
     from ovr_tpu_torch import api
     from ovr_tpu_torch.core.scene import Camera
     from ovr_tpu_torch.neural import init_field, train
+    from ovr_tpu_torch.neural.losses import l2
     from ovr_tpu_torch.ops import swslice
     res = {}
     dense = make_scene(grid, "bench", "persp")
@@ -2771,23 +2863,30 @@ def neural_headline(grid, smi):
     step, state = train.make_image_train_step(scene, cfg, lr=1e-3)
     target = torch.zeros((1080, 1920, 4), device="cuda")
     n0 = swslice.LAUNCHES
-    state, loss0 = step(state, scene.camera, target)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, loss1 = step(state, scene.camera, target)
+    state, loss0 = step(state, scene.camera, target)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
+    launches_step = swslice.LAUNCHES - n0
+    peak = torch.cuda.max_memory_allocated()
     g = [q.grad for q in field.parameters()]
     finite = all(bool(torch.isfinite(x).all()) for x in g)
+    # the loss after the update: the step's forward (termination off, as
+    # under grad) without the backward
+    with torch.no_grad():
+        loss1 = l2(api.render(scene, dataclasses.replace(
+            cfg, sw=dataclasses.replace(cfg.sw, term=False)),
+            camera=scene.camera).rgba, target)
     res["train_step_128"] = dict(
-        ms=step_ms, peak_bytes=torch.cuda.max_memory_allocated(),
-        loss=(float(loss0), float(loss1)), launches_per_step=(
-            swslice.LAUNCHES - n0) / 2, grad_tables_max=float(
-                g[0].abs().max()), n_slices=cfg.sw.n_slices,
+        ms=step_ms, peak_bytes=peak,
+        loss=(float(loss0), float(loss1)), launches_per_step=launches_step,
+        grad_tables_max=float(g[0].abs().max()), n_slices=cfg.sw.n_slices,
         fan=(cfg.sw.inter_h, cfg.sw.inter_w))
     log(f"neural train step 1920x1080, 128^3 proxy (differentiable bake), "
-        f"rate 1024, diffuse, lr 1e-3: {step_ms:.0f} ms, peak "
+        f"rate 1024, diffuse, lr 1e-3: {step_ms:.0f} ms (one step, cold; "
+        f"the bench phase times it warm), peak "
         f"{res['train_step_128']['peak_bytes'] / 2**30:.2f} GiB, loss "
         f"{float(loss0):.5e} -> {float(loss1):.5e}, kernel launches a step "
         f"{res['train_step_128']['launches_per_step']:.0f}; {smi}")
@@ -2873,8 +2972,7 @@ def sequence_files(n, steps, tmp, device):
                 z = ax[z0:z0 + 128, None, None]
                 g = 0.5 + 0.35 * torch.sin(12 * x + ph) * torch.cos(
                     10 * y) * torch.sin(8 * z - ph)
-                f.write(torch.clamp(torch.round(g * 255), 0, 255).to(
-                    torch.uint8).cpu().numpy().tobytes())
+                f.write(quantized(g, "u8").cpu().numpy().tobytes())
         paths.append(path)
     return os.path.join(tmp, "seq_%04d.raw"), paths
 
@@ -3167,9 +3265,7 @@ def apps_phase(smi):
     res = {"pil": has_pil}
     n = APPS_N
     dev, (w, h) = APPS_DEVICE, APPS_SIZE
-    g = field(n, "bench", dev)
-    grid = torch.clamp(torch.round(g * 255), 0, 255).to(torch.uint8)
-    del g
+    grid = quantized(field(n, "bench", dev), "u8")
     tmp = tempfile.mkdtemp(prefix="ovr_apps_")
     try:
         t0 = time.perf_counter()
@@ -4008,13 +4104,11 @@ def parallel_rank(out_dir, init, world, rank):
     return 0
 
 
-def parallel_phase(grids, big, smi):
+def parallel_start(grids, big, smi):
     """The multi-device paths: (a) the kernel on brick and band inputs;
-    (b) one rank over NCCL; (c) PAR_WORLD gloo ranks that share the card
-    render the headline frame bricked 1 x 2, as tiles x bricks 2 x 2 and
-    as tiles 2 x 1, held against the single-rank frame; (d) their train
-    steps, against the same ranks on the CPU. Returns the phase's
-    record."""
+    (b) one rank over NCCL; then starts the job of (c) and (d), whose
+    ranks run in their own processes while this one goes on
+    (`parallel_finish` waits for them). Returns the job's handle."""
     import tempfile
 
     import numpy as np
@@ -4036,24 +4130,52 @@ def parallel_phase(grids, big, smi):
     one = nccl_one_rank(big)
     scene = make_scene(big, "bench", "persp")
     refs = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        vr = scene.tfn.value_range.cpu().numpy()
-        np.save(os.path.join(tmp, "value_range.npy"), vr)
-        for shading in PAR_SHADINGS:
-            cfg = par_cfg(scene, shading)
-            lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
-                  else None)
-            if lg is not None:
-                np.save(os.path.join(tmp, "lattice.npy"), lg.cpu().numpy())
-            refs[shading] = api.render(scene, cfg,
-                                       light_grid=lg).rgba.cpu().numpy()
-        del scene
-        torch.cuda.empty_cache()
-        t_job = time.perf_counter()
-        outs = multihost.run_ranks(
-            [sys.executable, os.path.abspath(__file__), "--rank", tmp],
-            PAR_WORLD, PAR_TIMEOUT)
-        job_s = time.perf_counter() - t_job
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    vr = scene.tfn.value_range.cpu().numpy()
+    np.save(os.path.join(tmp, "value_range.npy"), vr)
+    for shading in PAR_SHADINGS:
+        cfg = par_cfg(scene, shading)
+        lg = (api.build_light_grid(scene, cfg) if shading == "shadow"
+              else None)
+        if lg is not None:
+            np.save(os.path.join(tmp, "lattice.npy"), lg.cpu().numpy())
+        refs[shading] = api.render(scene, cfg,
+                                   light_grid=lg).rgba.cpu().numpy()
+    del scene
+    torch.cuda.empty_cache()
+    job = dict(t0=t0, worst=worst, bits=bits, one=one, refs=refs,
+               tmp_dir=tmp_dir, t_job=time.perf_counter())
+
+    def run():
+        try:
+            job["outs"] = multihost.run_ranks(
+                [sys.executable, os.path.abspath(__file__), "--rank", tmp],
+                PAR_WORLD, PAR_TIMEOUT)
+        except BaseException as e:  # raised in parallel_finish
+            job["error"] = e
+        job["job_s"] = time.perf_counter() - job["t_job"]
+
+    job["thread"] = threading.Thread(target=run, name="ranks")
+    job["thread"].start()
+    return job
+
+
+def parallel_finish(job, big, smi):
+    """Waits for the job `parallel_start` began: (c) PAR_WORLD gloo ranks
+    that share the card render the headline frame bricked 1 x 2, as
+    tiles x bricks 2 x 2 and as tiles 2 x 1, held against the
+    single-rank frame; (d) their train steps, against the same ranks on
+    the CPU. Returns the phase's record."""
+    import numpy as np
+    job["thread"].join()
+    t0, worst, bits, one, refs = (job[k] for k in ("t0", "worst", "bits",
+                                                   "one", "refs"))
+    job_s = job["job_s"]
+    with job["tmp_dir"] as tmp:
+        if "error" in job:
+            raise job["error"]
+        outs = job["outs"]
         ranks = []
         for r, out in enumerate(outs):
             for line in out.splitlines():
@@ -4143,8 +4265,8 @@ def parallel_phase(grids, big, smi):
         train={str(k): v for k, v in train.items()},
         train_max_norm_err=errs, launches=launches,
         job_seconds=job_s, seconds=time.perf_counter() - t0, card=smi)
-    log(f"parallel phase {rec['seconds']:.0f} s (the job of "
-        f"{PAR_WORLD} ranks {job_s:.0f} s)")
+    log(f"parallel phase {rec['seconds']:.0f} s from start to finish (the "
+        f"job of {PAR_WORLD} ranks {job_s:.0f} s)")
     return rec
 
 
@@ -4155,7 +4277,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     # fails (ImportError) when run outside the repository
-    from ovr_tpu_torch.ops import swslice  # noqa: F401
+    from ovr_tpu_torch.ops import cuda_build, swslice  # noqa: F401
     if sys.argv[1:2] == ["--rank"]:  # a rank of the parallel phase's job
         return parallel_rank(sys.argv[2], sys.argv[3], int(sys.argv[4]),
                              int(sys.argv[5]))
@@ -4167,42 +4289,106 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({torch.cuda.device_count()} visible); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    regs = build_kernel()
+    phases = {}  # seconds of each phase, in the order they ran
 
-    dev = torch.device("cuda")
-    grids = {}
-    for n in (64, 256, 1024):
-        for kind_f in ("bench", "sparse"):
-            if n == 1024 and kind_f == "sparse":
-                continue
-            g = field(n, kind_f, dev)
-            dts = ("bf16",) if n == 1024 else ("f32", "bf16", "u8")
-            for dt in dts:
-                if dt == "f32":
-                    grids[(n, dt, kind_f)] = g
-                elif dt == "bf16":
-                    grids[(n, dt, kind_f)] = g.to(torch.bfloat16)
-                else:
-                    grids[(n, dt, kind_f)] = torch.clamp(
-                        torch.round(g * 255), 0, 255).to(torch.uint8)
-            if n == 64:  # 60 rows along the views' rows (grid axis y)
-                grids[(n, "f32r60", kind_f)] = g[:, :60].contiguous()
-            del g
-    worst, worst_bf16 = parity(grids)
+    @contextlib.contextmanager
+    def phase(name):
+        t = time.perf_counter()
+        yield
+        phases[name] = time.perf_counter() - t
+        log(f"phase {name}: {phases[name]:.1f} s "
+            f"({time.perf_counter() - t0:.0f} s so far)")
+
+    # nvcc builds the kernel on the host's cores while the phases that
+    # launch no kernel (the march and the path tracers, card against
+    # CPU) run
+    built = {}
+
+    def build():
+        try:
+            built["regs"] = build_kernel()
+        except BaseException as e:  # raised again below, in this thread
+            built["error"] = e
+
+    t_build = time.perf_counter()
+    builder = threading.Thread(target=build, name="nvcc")
+    builder.start()
+    with phase("march parity"):
+        mpar = march_parity()
+    log(f"march parity: all cases agree, largest frame difference "
+        f"{mpar['frame']:.2e}, gradient (float64) {mpar['grad']:.2e}")
+    with phase("pt parity"):
+        pt_par = pt_parity()
+    with phase("pt dense vs mc"):
+        pt_dvm = pt_dense_vs_mc()
+    with phase("build, after the phases beside it"):
+        builder.join()
+    if "error" in built:
+        raise built["error"]
+    regs = built["regs"]
+    phases["nvcc, beside them"] = cuda_build.load("swslice").seconds
+    log(f"build and the phases beside it: "
+        f"{time.perf_counter() - t_build:.1f} s (nvcc "
+        f"{phases['nvcc, beside them']:.1f} s)")
+
+    with phase("grids"):
+        dev = torch.device("cuda")
+        grids = {}
+        for n in (64, 256, 1024):
+            for kind_f in ("bench", "sparse"):
+                if n == 1024 and kind_f == "sparse":
+                    continue
+                g = field(n, kind_f, dev)
+                dts = (("bf16",) if n == 1024
+                       else ("f32", "bf16", "u8", "u16"))
+                for dt in dts:
+                    if dt == "f32":
+                        grids[(n, dt, kind_f)] = g
+                    elif dt == "bf16":
+                        grids[(n, dt, kind_f)] = g.to(torch.bfloat16)
+                    else:
+                        grids[(n, dt, kind_f)] = quantized(g, dt)
+                if n == 64:  # 60 rows along the views' rows (grid axis y)
+                    grids[(n, "f32r60", kind_f)] = g[:, :60].contiguous()
+                del g
+    with phase("parity"):
+        worst, worst_bf16 = parity(grids)
     log(f"parity: all cases agree, largest difference {worst:.2e}, of the "
-        f"bf16 variant {worst_bf16:.2e} ({time.perf_counter() - t0:.0f} s "
-        f"so far)")
-    worst_map, worst_map16 = parity(grids, EXIT_CASES, surfaces=True)
+        f"bf16 variant {worst_bf16:.2e}")
+    with phase("exit-map parity"):
+        worst_map, worst_map16 = parity(grids, EXIT_CASES, surfaces=True)
     worst, worst_bf16 = max(worst, worst_map), max(worst_bf16, worst_map16)
     log(f"parity with the exit map: all cases agree, largest difference "
-        f"{max(worst_map, worst_map16):.2e} ({time.perf_counter() - t0:.0f} "
-        f"s so far)")
-    par = parallel_phase(grids, grids[(1024, "bf16", "bench")], smi)
+        f"{max(worst_map, worst_map16):.2e}")
+    big = grids[(1024, "bf16", "bench")]
+    with phase("parallel, to its job"):
+        job = parallel_start(grids, big, smi)
+    # the card-vs-CPU checks at 64^3 run while the job's ranks run (their
+    # frame and kernel times are time-shared in any case); two intra-op
+    # threads leave the host's other cores to the ranks
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with phase("backward parity"):
+        bwd_worst = backward_parity(grids)
+    log(f"backward parity: all cases agree, largest normalised difference "
+        f"{bwd_worst:.2e}")
+    with phase("geometry parity"):
+        geo_par = geometry_parity(grids)
+    with phase("geometry backward"):
+        geo_bwd = geometry_backward(grids)
+    with phase("multi-volume parity"):
+        mv_par = multivol_parity(grids)
+    torch.set_num_threads(threads)
+    with phase("parallel, its job"):
+        par = parallel_finish(job, big, smi)
     worst = max(worst, par["hook_parity"]["max_abs_err"],
                 par["ranks"][0]["bricks 1x2"].get("band_err", 0.0))
+    for key in [k for k in grids if k[0] != 1024]:
+        del grids[key]
 
-    results, launches, res16, launches16, vs_f32 = main_path(
-        grids[(1024, "bf16", "bench")], smi, regs)
+    with phase("main path"):
+        results, launches, res16, launches16, vs_f32 = main_path(
+            big, smi, regs)
     if launches < 1 or launches16 < 1:
         raise SystemExit("the main path never launched the slice kernel "
                          "(or its bf16 variant)")
@@ -4210,68 +4396,59 @@ def main() -> int:
     worst = max([worst] + [r["band_err"] for r in results.values()])
     worst_bf16 = max([worst_bf16] + [r["band_err"] for r in res16.values()])
     log(f"main path: {launches} launches of the f32 function, {launches16} "
-        f"of the bf16 variant ({time.perf_counter() - t0:.0f} s so far)")
-    geo, geo_launches = geometry_headline(grids[(1024, "bf16", "bench")], smi)
+        f"of the bf16 variant")
+    with phase("u16 headline"):
+        res_u16, launches_u16 = u16_headline(smi, regs)
+    worst = max([worst] + [r["band_err"] for r in res_u16.values()])
+    log(f"u16 headline: {launches_u16} launches of the f32 function on "
+        f"16-bit storage")
+    with phase("surfaces"):
+        geo, geo_launches = geometry_headline(big, smi)
     worst = max([worst] + [r["band_err"] for r in geo.values()])
-    mv, mv_launches = multivol_headline(grids[(1024, "bf16", "bench")], smi)
+    with phase("multi-volume"):
+        mv, mv_launches = multivol_headline(big, smi)
     log(f"surfaces and multi-volume: {geo_launches} launches with the exit "
-        f"map, {mv_launches} in multi-volume frames "
-        f"({time.perf_counter() - t0:.0f} s so far)")
+        f"map, {mv_launches} in multi-volume frames")
 
-    bwd_worst = backward_parity(grids)
-    log(f"backward parity: all cases agree, largest normalised difference "
-        f"{bwd_worst:.2e} ({time.perf_counter() - t0:.0f} s so far)")
-    geo_par = geometry_parity(grids)
-    geo_bwd = geometry_backward(grids)
-    mv_par = multivol_parity(grids)
-    big = grids[(1024, "bf16", "bench")]
-    for key in [k for k in grids if k[0] != 1024]:
-        del grids[key]
-    bwd, bwd_launches, scene, mc = backward_headline(big, smi)
+    with phase("backward headline"):
+        bwd, bwd_launches, scene, mc = backward_headline(big, smi)
     if bwd_launches < 1:
         raise SystemExit("the backward path never launched the slice kernel")
-    prof = backward_profile(scene, mc)
+    with phase("backward profile"):
+        prof = backward_profile(scene, mc)
     del scene, mc
 
-    t_march = time.perf_counter()
-    mpar = march_parity()
-    log(f"march parity: all cases agree, largest frame difference "
-        f"{mpar['frame']:.2e}, gradient (float64) {mpar['grad']:.2e} "
-        f"({time.perf_counter() - t0:.0f} s so far)")
-    mhead, mlaunch, scene, mc = march_headline(big, smi)
-    oracle = march_oracle(scene, mc)
-    fallback = march_fallback(big, mc, smi)
-    log(f"march phase {time.perf_counter() - t_march:.0f} s")
-    sparse = sparse_headline(big, smi)
+    with phase("march headline"):
+        mhead, mlaunch, scene, mc = march_headline(big, smi)
+    with phase("march oracle"):
+        oracle = march_oracle(scene, mc)
+    with phase("march fallback"):
+        fallback = march_fallback(big, mc, smi)
+    with phase("sparse"):
+        sparse = sparse_headline(big, smi)
 
-    phase_s = {}
-    t_ph = time.perf_counter()
-    io_res = scene_io(smi)
-    phase_s["scene_io"] = time.perf_counter() - t_ph
-    t_ph = time.perf_counter()
-    pt_par = pt_parity()
-    phase_s["pt_parity_64"] = time.perf_counter() - t_ph
-    t_ph = time.perf_counter()
-    pt_head = pt_headline(big, smi)
-    phase_s["pt_headline"] = time.perf_counter() - t_ph
-    t_ph = time.perf_counter()
-    pt_dvm = pt_dense_vs_mc()
-    phase_s["pt_dense_vs_mc"] = time.perf_counter() - t_ph
-    t_ph = time.perf_counter()
-    npar = neural_parity()
-    nhead = neural_headline(big, smi)
-    neural_s = time.perf_counter() - t_ph
+    with phase("scene io"):
+        io_res = scene_io(smi)
+    with phase("scene io u16"):
+        io_u16 = scene_io(smi, "u16")
+    with phase("pt headline"):
+        pt_head = pt_headline(big, smi)
+    with phase("neural parity"):
+        npar = neural_parity()
+    with phase("neural headline"):
+        nhead = neural_headline(big, smi)
+    neural_s = phases["neural parity"] + phases["neural headline"]
     worst = max([worst] + [r["band_err"] for r in nhead["frames"].values()])
-    log(f"neural phase {neural_s:.0f} s ({time.perf_counter() - t0:.0f} s "
-        f"so far)")
-    apps, apps_launches = apps_phase(smi)
-    log(f"apps phase {apps['seconds']:.0f} s, {apps_launches} K1 launches "
-        f"({time.perf_counter() - t0:.0f} s so far)")
-    bench_res, bench_launches = bench_phase(smi, big, head["frame_ms"])
-    log(f"{time.perf_counter() - t0:.0f} s so far")
-    log("scene io and path tracing phases: " + ", ".join(
-        f"{k} {v:.0f} s" for k, v in phase_s.items())
-        + f" ({time.perf_counter() - t0:.0f} s so far)")
+    with phase("apps"):
+        apps, apps_launches = apps_phase(smi)
+    log(f"apps: {apps_launches} K1 launches")
+    with phase("bench"):
+        bench_res, bench_launches = bench_phase(smi, big, head["frame_ms"])
+    phase_s = {k: phases[k] for k in ("scene io", "scene io u16", "pt parity",
+                                      "pt headline", "pt dense vs mc")}
+    log("seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.items())
+        + f"; total {time.perf_counter() - t0:.1f} s")
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"backward": {
         "shape": "1024^3 bf16, 1920x1080, 1024 planes, macrocells on; loss "
@@ -4303,6 +4480,9 @@ def main() -> int:
         "scene_io": dict(io_res, shape="1024^3 u8 VIDI3D / USDA files, "
                          "Renderer 1920x1080, rate 1024, auto, diffuse, "
                          "macrocells on"),
+        "scene_io_u16": dict(io_u16, shape="1024^3 u16 VIDI3D file (2 GiB "
+                             "UNSIGNED_SHORT raw), Renderer 1920x1080, rate "
+                             "1024, auto, diffuse, macrocells on"),
         "pt_parity_64": pt_par,
         "pt_headline": dict(pt_head, shape="1024^3 bf16, 1920x1080, "
                             "max_scatters 24; dense: lattice 128, 14 "
@@ -4350,6 +4530,8 @@ def main() -> int:
         "launches_with_exit_map": geo_launches,
         "launches_multi_volume": mv_launches,
         "launches_scene_io": io_res["launches"],
+        "launches_u16": launches_u16,
+        "launches_scene_io_u16": io_u16["launches"],
         "launches_neural": nhead["launches"],
         "launches_neural_train_step": nhead["train_step_128"][
             "launches_per_step"],
@@ -4375,6 +4557,15 @@ def main() -> int:
         "library_ms": None,
         "shape": "1024^3 bf16, 1920x1080, 1024 planes, diffuse",
         "modes": {s: {k: r[k] for k in keys} for s, r in results.items()},
+        "u16": {
+            "shape": "1024^3 u16 (round(field * 65535), 2.15 GB), "
+                     "1920x1080, 1024 planes",
+            "ms": res_u16["diffuse u16"]["kernel_ms"],
+            "plain_ms": res_u16["diffuse u16"]["band_plain_ms"],
+            "bound_ms": res_u16["diffuse u16"]["bound_ms"],
+            "bound_by": res_u16["diffuse u16"]["bound_by"],
+            "modes": {s: {k: r[k] for k in keys}
+                      for s, r in res_u16.items()}},
         "card": smi,
     }
     entry16 = {
@@ -4398,6 +4589,8 @@ def main() -> int:
         "vs_f32_frame": vs_f32,
         "card": smi,
     }
+    print(json.dumps({"phases_s": phases, "total_s": time.perf_counter() - t0,
+                      "card": smi}))
     log(f"total {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": [entry, entry16]}))
     print(json.dumps({"ok": True, "device": {

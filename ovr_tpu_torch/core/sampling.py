@@ -65,10 +65,15 @@ def sample_volume(grid: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     i0 = i0f.int()
     ii = torch.stack([i0, torch.minimum(i0 + 1, top)], dim=-1)  # (..., 3, 2)
     xs, ys, zs = ii.unbind(-2)
+    # CUDA's index kernels have no uint16 version: gather its int16 bits
+    u16 = grid.dtype == torch.uint16
+    src = grid.view(torch.int16) if u16 else grid
     # corners in the order 000, 100, 010, 110, 001, 101, 011, 111 (x
     # fastest): [z][y][x] of the broadcast gather
-    cs = grid[zs[..., :, None, None], ys[..., None, :, None],
-              xs[..., None, None, :]]
+    cs = src[zs[..., :, None, None], ys[..., None, :, None],
+             xs[..., None, None, :]]
+    if u16:
+        cs = cs.to(torch.int32) & 0xFFFF
     cs = cs.reshape(cs.shape[:-3] + (8,)).to(p.dtype)
     fx, fy, fz = (t[..., None] for t in f.unbind(-1))
     cx = cs[..., 0::2] * (1 - fx) + cs[..., 1::2] * fx  # c00 c10 c01 c11

@@ -117,8 +117,11 @@ def brick_volume(volume, n_bricks: int,
     grid = volume.grid
     d = grid.shape[0]
     which = range(n_bricks) if only is None else [only]
-    bricks = torch.stack([grid.index_select(
-        0, slab_rows(d, n_bricks, b).to(grid.device)) for b in which])
+    # CUDA's index kernels have no uint16 version: move its int16 bits
+    src = grid.view(torch.int16) if grid.dtype == torch.uint16 else grid
+    bricks = torch.stack([src.index_select(
+        0, slab_rows(d, n_bricks, b).to(grid.device))
+        for b in which]).view(grid.dtype)
     bounds = [torch.from_numpy(x[list(which)]).to(grid.device)
               for x in brick_bounds(volume.world_lo, volume.world_hi, d,
                                     n_bricks)]

@@ -10,7 +10,8 @@ its own copy, since importing the JAX package's module loads JAX).
 - `_R2`, the R2 low-discrepancy sequence's step, drives the temporal
   dimension (`render.sparse`): the spatial pattern shifted toroidally
   along it, so consecutive sparse frames select stable, complementary,
-  well-spaced pixel sets.
+  well-spaced pixel sets. `stbn_offsets` gives a frame's shift as host
+  integers.
 """
 
 from __future__ import annotations
@@ -106,3 +107,10 @@ def void_and_cluster(n: int = 64, sigma: float = 1.9, seed: int = 0,
         os.makedirs(os.path.dirname(cache_path), exist_ok=True)
         np.save(cache_path, out)
     return out
+
+
+def stbn_offsets(frame_index: int, n: int) -> tuple[int, int]:
+    """R2 low-discrepancy toroidal shift for a frame (host-side ints)."""
+    fx = (frame_index * _R2[0]) % 1.0
+    fy = (frame_index * _R2[1]) % 1.0
+    return int(fx * n), int(fy * n)

@@ -123,6 +123,8 @@ def _field(n, kind="smooth"):
 def _grid(g, dtype):
     if dtype == "u8":
         return np.clip(np.round(g * 255), 0, 255).astype(np.uint8)
+    if dtype == "u16":
+        return np.clip(np.round(g * 65535), 0, 65535).astype(np.uint16)
     if dtype == "bf16":
         return jnp.asarray(g, jnp.bfloat16)
     return g
@@ -277,6 +279,19 @@ def test_u8_grid_alpha_grad_matches_jax():
     assert ts.volume.grid.dtype == torch.uint8
     assert ts.volume.grid.grad is None
     assert_grads_close(got["alpha"], jax_grads(js, jc, None,
+                                               ("alpha",))["alpha"])
+
+
+def test_u16_grid_alpha_grad_matches_jax():
+    """A u16 grid has no cotangent either; through the shadow lattice
+    too, the TF's gradient matches."""
+    js, ts = _scenes("persp", dtype="u16")
+    jc, tc = _configs(js, ts, "shadow")
+    lg = japi.build_light_grid(js, jc)
+    got = port_grads(ts, tc, torch.from_numpy(np.array(lg)), ("alpha",))
+    assert ts.volume.grid.dtype == torch.uint16
+    assert ts.volume.grid.grad is None
+    assert_grads_close(got["alpha"], jax_grads(js, jc, lg,
                                                ("alpha",))["alpha"])
 
 

@@ -111,6 +111,23 @@ def jax_bricked(js, cfg, mesh, lat):
         s, b, cfg, m, light_grid=g))(js, bv, lg))
 
 
+def test_u16_brick_volume_matches_jax():
+    """A u16 grid's bricks keep its type and its bits (they move as
+    int16 bits: CUDA's index kernels have no uint16 version)."""
+    js = jscene(VIEWS["asc"])
+    g = np.clip(np.round(np.asarray(js.volume.grid) * 65535), 0,
+                65535).astype(np.uint16)
+    assert g.max() > 32767  # the sign bit of the int16 view is used
+    js = dataclasses.replace(js, volume=dataclasses.replace(
+        js.volume, grid=jnp.asarray(g)))
+    ts = scene_from_arrays(arrays_from_scene(js), device="cpu")
+    got = bricks.brick_volume(ts.volume, 2)
+    assert got.bricks.dtype == torch.uint16
+    np.testing.assert_array_equal(
+        got.bricks.numpy(), np.asarray(jbricks.brick_volume(js.volume,
+                                                            2).bricks))
+
+
 @pytest.mark.parametrize("n_bricks", [2, 4])
 def test_brick_volume_matches_jax(n_bricks):
     js = jscene(VIEWS["asc"])

@@ -162,11 +162,14 @@ def test_build_macrocells_matches(dtype):
     ((0.9, 0.2, -0.3), "f32"),
     ((0.1, -0.3, -1.0), "u8"),
     ((-0.2, 0.1, 0.95), "f32"),
+    ((0.6, 0.5, 0.4), "u16"),
 ])
 def test_light_grid_swept_matches(direction, dtype):
     g = smooth_grid(shape=(20, 24, 28))
     if dtype == "u8":
         g = np.clip(np.round(g * 255), 0, 255).astype(np.uint8)
+    elif dtype == "u16":
+        g = np.clip(np.round(g * 65535), 0, 65535).astype(np.uint16)
     color = np.stack([np.linspace(0, 1, 16), 0.5 * np.ones(16),
                       np.linspace(1, 0, 16)], -1).astype(np.float32)
     alpha = np.linspace(0.0, 1.0, 16).astype(np.float32)

@@ -41,6 +41,8 @@ def _field(n, kind):
 def _grid(g, dtype):
     if dtype == "u8":
         return np.clip(np.round(g * 255), 0, 255).astype(np.uint8)
+    if dtype == "u16":
+        return np.clip(np.round(g * 65535), 0, 65535).astype(np.uint16)
     if dtype == "bf16":
         return torch.from_numpy(g).to(torch.bfloat16)
     return g
@@ -125,6 +127,9 @@ def assert_out_close(a, b, rgb=5e-5, depth=2e-4):
     ("diffuse", False, True, "f32", "ortho", 0),
     ("shadow", True, True, "u8", "persp", 1),
     ("shadow", False, False, "bf16", "back", 0),
+    ("none", True, True, "u16", "persp", 0),
+    ("diffuse", False, False, "u16", "back", 3),
+    ("shadow", True, True, "u16", "ortho", 1),
 ])
 def test_kernel_matches_plain_on_card(shading, fd, skip, dtype, cam,
                                       n_lights):
@@ -165,6 +170,9 @@ def test_kernel_matches_plain_on_card(shading, fd, skip, dtype, cam,
     ("shadow", True, "bf16", "persp", 48, (2, 1), True),
     ("diffuse", True, "f32", "persp", 48, (6, 1), False),
     ("shadow", False, "u8", "back", 48, (0, 2), False),
+    ("diffuse", True, "u16", "persp", 32, (2, 1), True),
+    ("shadow", False, "u16", "ortho", 24, (0, 0), True),
+    ("diffuse", False, "u16", "back", 48, (1, 2), False),
 ])
 def test_bf16_and_light_table_match_plain_on_card(shading, fd, dtype, cam, n,
                                                   lights, bf16):
@@ -204,7 +212,7 @@ def _counts(args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["f32", "bf16", "u8"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "u8", "u16"])
 def test_early_termination_leaves_no_error(dtype):
     """Blocks that stop early leave no copy in flight: an opaque frame
     whose blocks terminate synchronizes without an error, and every one
@@ -252,6 +260,35 @@ def test_render_on_card_matches_cpu(shading):
     for name in ("rgba", "grad", "depth"):
         np.testing.assert_allclose(getattr(card, name).cpu().numpy(),
                                    getattr(cpu, name).numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["auto", "march"])
+def test_u16_render_on_card_matches_cpu(method):
+    """A u16 grid on the card: the shadow lattice `render` builds (the
+    per-point shadow march, `sample_volume`), the slice kernel or the
+    march, and the bricks of its volume, against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ovr_tpu_torch.parallel import bricks
+    frames, split = [], []
+    for device in ("cuda", "cpu"):
+        scene = _scene("smooth", "u16", "persp", n=48, device=device)
+        cfg = api.RenderConfig(width=72, height=56, sampling_rate=48.0,
+                               shading="shadow", method=method
+                               ).resolved(scene)
+        before = swslice.LAUNCHES
+        frames.append(api.render(scene, cfg))
+        assert swslice.LAUNCHES == before + (device == "cuda"
+                                             and method == "auto")
+        split.append(bricks.brick_volume(scene.volume, 2).bricks)
+    assert split[0].dtype == torch.uint16
+    assert torch.equal(split[0].cpu().view(torch.int16),
+                       split[1].view(torch.int16))
+    for name in ("rgba", "grad", "depth"):
+        np.testing.assert_allclose(getattr(frames[0], name).cpu().numpy(),
+                                   getattr(frames[1], name).numpy(),
+                                   atol=1e-4)
 
 
 def frame_grads(scene, cfg, macrocells=None, light_grid=None):

@@ -52,17 +52,19 @@ def grids(kind="smooth", n=20):
     """(JAX grid, port grid) per storage type, the same values."""
     g = _field(n, kind)
     u8 = np.clip(np.round(g * 255), 0, 255).astype(np.uint8)
+    u16 = np.clip(np.round(g * 65535), 0, 65535).astype(np.uint16)
     return {"f32": (jnp.asarray(g), t(g)),
             "bf16": (jnp.asarray(g, jnp.bfloat16),
                      t(g).to(torch.bfloat16)),
-            "u8": (jnp.asarray(u8), t(u8))}
+            "u8": (jnp.asarray(u8), t(u8)),
+            "u16": (jnp.asarray(u16), t(u16))}
 
 
 # ---------------------------------------------------------------------------
 # sampling
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16", "u8"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "u8", "u16"])
 def test_sample_volume_and_gradient_match_jax(dtype):
     jg, tg = grids(n=13)[dtype]
     rng = np.random.default_rng(1)

@@ -66,8 +66,14 @@ def _field(n, kind="smooth"):
             * np.sin(4 * z + 1.0)).astype(np.float32)
 
 
-def _scenes(cam, n=24, kind="smooth", alpha=None):
-    js = dataclasses.replace(jsimple(_field(n, kind)),
+def _u16(g):
+    """A field in [0, 1] as 16-bit counts."""
+    return np.clip(np.round(g * 65535), 0, 65535).astype(np.uint16)
+
+
+def _scenes(cam, n=24, kind="smooth", alpha=None, dtype="f32"):
+    g = _field(n, kind)
+    js = dataclasses.replace(jsimple(_u16(g) if dtype == "u16" else g),
                              camera=JCamera.create(**CAMERAS[cam]))
     if alpha is not None:
         js = dataclasses.replace(js, tfn=dataclasses.replace(
@@ -210,6 +216,51 @@ def test_persp_shearwarp_golden(kernel):
         return np.concatenate([x[..., :3] * x[..., 3:], x[..., 3:]], -1)
 
     np.testing.assert_allclose(premult(rgba), premult(golden), atol=2.5e-3)
+
+
+# ---------------------------------------------------------------------------
+# 16-bit volumes: the grid stays uint16 and the slice loop scales it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["xla", "kernel"])
+@pytest.mark.parametrize("shading", ["none", "diffuse", "shadow"])
+def test_u16_render_matches_jax(shading, kernel):
+    """A u16 grid (32 rows: the JAX kernel streams it as u16) through
+    `api.render` in both packages, macrocells on, at the file's
+    tolerances; the port keeps the grid in its type."""
+    js, ts = _scenes("oblique", n=32, dtype="u16")
+    assert js.volume.grid.dtype == jnp.uint16
+    assert ts.volume.grid.dtype == torch.uint16
+    jf, tf, _ = render_both(js, ts, shading, kernel, macrocells=True)
+    assert_frames_close(jf, tf)
+
+
+def test_u16_termination_matches_jax():
+    alpha = np.linspace(0.5, 1.0, 16)
+    js, ts = _scenes("persp", n=32, alpha=alpha, dtype="u16")
+    jf, tf, _ = render_both(js, ts, "diffuse", kernel=True, base_rate=8.0)
+    assert float(tf.rgba[..., 3].max()) > 0.999
+    assert_frames_close(jf, tf, rgba=5e-4, depth=5e-4)
+
+
+def test_u16_shadow_lattice_matches_jax():
+    """The shadow lattice of a u16 grid: `api.build_light_grid` (the
+    swept builder) against JAX's at 1e-5, and the storage scale applied
+    (tests/test_swskip.py:296's rule against the f32 field's lattice);
+    a shadow frame without `light_grid` (the lattice built inside
+    `render`, JAX's per-point shadow march) against JAX's."""
+    js, ts = _scenes("persp", n=32, dtype="u16")
+    kw = dict(width=48, height=40, sampling_rate=32.0, shading="shadow")
+    jc = japi.RenderConfig(**kw).resolved(js)
+    tc = api.RenderConfig(**kw).resolved(ts)
+    lg = api.build_light_grid(ts, tc)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(
+        japi.build_light_grid(js, jc)), atol=1e-5)
+    _, t32 = _scenes("persp", n=32)
+    lg32 = api.build_light_grid(t32, api.RenderConfig(**kw).resolved(t32))
+    assert float((lg - lg32).abs().mean()) < 2e-2
+    assert float(lg.max()) > 0.1  # the volume does cast shadows
+    assert_frames_close(japi.render(js, jc), api.render(ts, tc))
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,15 @@ def test_void_and_cluster_equals_jax(n, seed):
         jbn.void_and_cluster(n, seed=seed, cache=False))
 
 
+@pytest.mark.parametrize("n", [64, 128])
+def test_stbn_offsets_equal_jax(n):
+    """A frame's toroidal shift, host integers, for frames 0-255."""
+    got = [tbn.stbn_offsets(f, n) for f in range(256)]
+    assert got == [jbn.stbn_offsets(f, n) for f in range(256)]
+    assert all(type(v) is int and 0 <= v < n for xy in got for v in xy)
+    assert len(set(got)) > 200  # the walk moves from frame to frame
+
+
 def test_bluenoise_caches_in_its_own_directory(tmp_path, monkeypatch):
     monkeypatch.setenv("HOME", str(tmp_path))
     a = tbn.void_and_cluster(8, seed=1)

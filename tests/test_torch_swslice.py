@@ -76,6 +76,13 @@ CASES = [
     ("shadow", True, True, False, "f32", "persp", 0),
     ("shadow", False, True, True, "f32", "ortho", 2),
     ("shadow", True, False, True, "bf16", "back", 1),
+    # 16-bit storage: modes 0/1/2, FD on and off, skip on and off, light
+    # tables up to the JAX kernel's 4 slots, the back camera (axial_flip)
+    ("none", True, True, False, "u16", "persp", 0),
+    ("diffuse", True, False, True, "u16", "ortho", 2),
+    ("diffuse", False, True, False, "u16", "back", 4),
+    ("shadow", True, True, True, "u16", "back", 1),
+    ("shadow", False, False, False, "u16", "persp", 0),
 ]
 
 
@@ -241,6 +248,9 @@ BF16_CASES = [
     ("shadow", True, True, False, "bf16", "persp", 0, 32),
     ("shadow", False, False, True, "f32", "back", 3, 24),
     ("shadow", True, False, True, "u8", "ortho", 4, 48),
+    # u16 of 32 rows streams as u16 in the JAX kernel, of 24 rows as f32
+    ("diffuse", True, True, True, "u16", "persp", 2, 32),
+    ("shadow", True, False, True, "u16", "ortho", 1, 24),
 ]
 
 
@@ -295,6 +305,22 @@ def test_bf16_reads_f32_grid_as_bf16_by_rows(n):
         np.testing.assert_array_equal(out, cast)
     else:
         assert np.abs(out - cast).max() > 1e-4
+
+
+@pytest.mark.parametrize("n", [32, 24])
+def test_bf16_reads_u16_grid_as_it_is(n):
+    """Under bf16 a u16 grid is read as u16 whatever its row count; the
+    JAX kernel streams it as u16 (16k rows) or as f32 (`_storage_plan`),
+    and both hold the same values, so BF16_CASES holds the port against
+    each."""
+    scene = _scene(dtype="u16", n=n)
+    args, kw = capture(scene, "diffuse", bf16=True)
+    assert kw["bf16"] and args[0].dtype == torch.uint16
+    assert args[0].shape[1] == n
+    assert swslice._streamed(args[0], True) is args[0]
+    assert jsw._storage_plan(_jnp(args[0]), n, args[0].shape[2], True,
+                             0)[0] == (jnp.uint16 if n % 16 == 0
+                                       else jnp.float32)
 
 
 def test_light_table_orders_and_counts():
