@@ -43,6 +43,10 @@ from ovr_tpu_torch.render import (geometry, lightgrid, multivol, pathtracer,
                                   ptdense, shearwarp, sparse)
 from ovr_tpu_torch.render.camera import (blended_flow, camera_basis,
                                          generate_rays, pixel_screen_coords)
+from ovr_tpu_torch.utils import trace
+
+READBACK_BYTES = 0  # bytes `Renderer.mapframe` returned to the host
+trace.register_counter("api.READBACK_BYTES", lambda: READBACK_BYTES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -576,7 +580,10 @@ class Renderer:
     density scale changes. A neural field's shear-warp frames render a
     proxy baked once (`_proxy_grid`, `bake_grid_host`); its macrocells
     come from a min(max_resolution, 256)^3 bake. `commit` and `render`
-    run without autograd."""
+    run without autograd. The setters, `commit`, `render` and `mapframe`
+    open the spans of `utils.trace` (recorded under a torch profiler);
+    `render_time` sums `render()`'s host time after its commit, the wait
+    for the card included."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig()):
         self.scene = scene
@@ -608,27 +615,29 @@ class Renderer:
 
     def set_camera(self, from_=None, at=None, up=None,
                    camera: Camera = None) -> None:
-        if camera is None:
-            c = self._camera
-            camera = Camera.create(
-                from_ if from_ is not None else c.from_,
-                at if at is not None else c.at,
-                up if up is not None else c.up,
-                fovy=c.fovy, height=c.height, kind=c.kind,
-                device=self._device)
+        with trace.span("set_camera", self._device):
+            if camera is None:
+                c = self._camera
+                camera = Camera.create(
+                    from_ if from_ is not None else c.from_,
+                    at if at is not None else c.at,
+                    up if up is not None else c.up,
+                    fovy=c.fovy, height=c.height, kind=c.kind,
+                    device=self._device)
         self._camera = camera
         # shear-warp plans depend on the camera
         self._reset(rejit=self._cfg.method != "march")
 
     def set_transfer_function(self, color, alpha, value_range) -> None:
-        color = np.asarray(color, np.float32)
-        if color.ndim == 1:
-            color = color.reshape(-1, 3)
-        alpha = np.asarray(alpha, np.float32)
-        if alpha.ndim == 2:  # (N, 2) position/value pairs: take values
-            alpha = alpha[:, 1]
-        tfn = TransferFunction.create(color, alpha, value_range,
-                                      device=self._device)
+        with trace.span("set_transfer_function", self._device):
+            color = np.asarray(color, np.float32)
+            if color.ndim == 1:
+                color = color.reshape(-1, 3)
+            alpha = np.asarray(alpha, np.float32)
+            if alpha.ndim == 2:  # (N, 2) position/value pairs: take values
+                alpha = alpha[:, 1]
+            tfn = TransferFunction.create(color, alpha, value_range,
+                                          device=self._device)
         self.scene = dataclasses.replace(self.scene, tfn=tfn)
         self._macrocells = None
         self._light_grid = None
@@ -698,14 +707,15 @@ class Renderer:
             self._dirty = True
 
     def commit(self) -> None:
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("commit", self._device):
             self._commit()
 
     def _commit(self) -> None:
         if self._dirty:
-            self._cfg = dataclasses.replace(
-                self._cfg, max_steps=None, shadow_max_steps=None
-            ).resolved(self.scene, self._camera)
+            with trace.span("plan", self._device):
+                self._cfg = dataclasses.replace(
+                    self._cfg, max_steps=None, shadow_max_steps=None
+                ).resolved(self.scene, self._camera)
             self._dirty = False
         vol = self.scene.volume
         if ((self._cfg.use_macrocells or self._cfg.path_tracing)
@@ -720,7 +730,8 @@ class Renderer:
             self._macrocells = accel.build_macrocells(
                 grid, self.scene.tfn.alpha, self.scene.tfn.value_range)
         if _wants_light_grid(self._cfg) and self._light_grid is None:
-            self._light_grid = build_light_grid(self.scene, self._cfg)
+            with trace.span("light_grid", self._device):
+                self._light_grid = build_light_grid(self.scene, self._cfg)
         if (self._cfg.path_tracing and self._cfg.pt_dense
                 and self._cfg.sw is not None and self._pt_fields is None):
             self._pt_fields = ptdense.prepare(self.scene, self._cfg)
@@ -733,10 +744,11 @@ class Renderer:
 
     def render(self) -> None:
         with torch.no_grad():
-            self._render()
+            self._commit()  # nothing left to do after commit()
+            with trace.span("render", self._device):
+                self._render()
 
     def _render(self) -> None:
-        self._commit()
         self._frame_index += 1
         t0 = time.perf_counter()
         if self._sparse and not self._cfg.path_tracing:
@@ -759,6 +771,7 @@ class Renderer:
                                             self._frame_index)
             self.variance = variance_of(self._accum, self._frame_index)
         if frame.rgba.is_cuda:
+            trace.stage("wait", frame.rgba.device)
             torch.cuda.synchronize(frame.rgba.device)
         self.render_time += time.perf_counter() - t0
         self._frame = frame
@@ -767,12 +780,20 @@ class Renderer:
         """Double buffering is a no-op in a functional renderer."""
 
     def mapframe(self) -> dict[str, np.ndarray]:
+        """The frame's buffers as host arrays (rgba, grad, and depth and
+        flow where the frame has them); the frame's spans end here."""
+        global READBACK_BYTES
         if self._frame is None:
             raise RuntimeError("render() first")
-        out = {"rgba": self._frame.rgba.detach().cpu().numpy(),
-               "grad": self._frame.grad.detach().cpu().numpy()}
-        if self._frame.depth is not None:
-            out["depth"] = self._frame.depth.detach().cpu().numpy()
-        if self._frame.flow is not None:
-            out["flow"] = self._frame.flow.detach().cpu().numpy()
+        f = self._frame
+        out = {}
+        with trace.span("mapframe", self._device):
+            for name, t in (("rgba", f.rgba), ("grad", f.grad),
+                            ("depth", f.depth), ("flow", f.flow)):
+                if t is None:
+                    continue
+                with trace.span(name, t.device):
+                    out[name] = t.detach().cpu().numpy()
+                    READBACK_BYTES += out[name].nbytes
+        trace.end_frame()
         return out

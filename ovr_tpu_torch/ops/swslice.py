@@ -57,10 +57,13 @@ import torch
 
 from ovr_tpu_torch.core.sampling import clip, storage_scale
 from ovr_tpu_torch.ops.adjoint import adjoint_sweep, over_scan
+from ovr_tpu_torch.utils import trace
 
 LAUNCHES = 0  # kernel launches through `slice_composite`
 LAUNCHES_BF16 = 0  # of them, launches of the kernel's bf16 variant
 PLAIN_CALLS = 0  # runs of `slice_composite_plain`, on any device
+trace.register_counter("swslice.LAUNCHES", lambda: LAUNCHES)
+trace.register_counter("swslice.LAUNCHES_BF16", lambda: LAUNCHES_BF16)
 
 BLOCK_ROWS = 8  # fan rows per CUDA block (csrc/swslice.cu: BR)
 BLOCK_COLS = 32  # fan columns per CUDA block (csrc/swslice.cu: BC)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ovr_tpu_torch.core.sampling import axis_constants, storage_scale
+from ovr_tpu_torch.utils import trace
 
 MACROCELL_SIZE = 16
 
@@ -148,8 +149,12 @@ def compute_majorants(value_lo, value_hi, alpha_table, tfn_value_range):
 
 def build_macrocells(grid, alpha_table, tfn_value_range) -> MacrocellGrid:
     """Build the partition for a (Z, Y, X) grid."""
-    lo, hi = compute_value_ranges(grid)
-    maj = compute_majorants(lo, hi, alpha_table, tfn_value_range)
+    dev = grid.device
+    with trace.span("macrocells", dev):
+        with trace.span("value_ranges", dev):
+            lo, hi = compute_value_ranges(grid)
+        with trace.span("majorants", dev):
+            maj = compute_majorants(lo, hi, alpha_table, tfn_value_range)
     zd, yd, xd = grid.shape
     return MacrocellGrid(value_lo=lo, value_hi=hi, majorant=maj,
                          vol_dims=(xd, yd, zd))

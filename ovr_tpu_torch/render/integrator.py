@@ -44,6 +44,7 @@ from ovr_tpu_torch.core.sampling import (classify, clip, fd_points,
                                          safe_normalize, sample_volume,
                                          scalar)
 from ovr_tpu_torch.neural.field import sample_any_volume, volume_rdim
+from ovr_tpu_torch.utils import trace
 
 SHADING_NONE = "none"
 SHADING_DIFFUSE = "diffuse"  # gradient shading, no shadow
@@ -53,6 +54,7 @@ SHADING_SSH = "ssh"  # single-shade heuristic (march only)
 EARLY_EXIT_ALPHA = 0.9999
 CHECK_EVERY = 16  # march_while: steps between "any ray active?" reads
 STEPS = 0  # steps run by march / march_while (a diagnostic counter)
+trace.register_counter("integrator.STEPS", lambda: STEPS)
 
 
 @dataclasses.dataclass(frozen=True)

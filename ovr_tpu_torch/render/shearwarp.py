@@ -39,6 +39,7 @@ from ovr_tpu_torch.ops import adjoint, swslice
 from ovr_tpu_torch.render import geometry
 from ovr_tpu_torch.render.ptdense import full_f32
 from ovr_tpu_torch.render.camera import camera_basis
+from ovr_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -406,6 +407,9 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     # a path-traced neural field has no grid; its planes sample sigma
     src = pt_fields[0] if is_field(vol) else vol.grid
     dev = src.device
+    # the stages of the enclosing span (utils.trace): the setup up to the
+    # slice loop, the loop ("k1"), the warp
+    trace.stage("setup", dev)
     axis, sign = sw.axis, sw.sign
     w1, w2 = _perp_axes(axis)
     ortho = camera.kind == ORTHOGRAPHIC
@@ -538,10 +542,12 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         exa=ext[axis], ortho=ortho, **clip_scalars)
 
     if cfg.shading == "none":
+        sc = _kernel_scalars(dt, dev, **common)
+        trace.stage("k1", dev)
         out8 = swslice.slice_composite(
-            grid, rgba_tab, _kernel_scalars(dt, dev, **common), pg, qg, k0,
-            n_loc, mode=0, majorant_v=maj_v, term=sw.term, fd=sw.fd_grad,
-            bf16=sw.bf16, axial_flip=sign < 0, exit_map=exit_map)
+            grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=0, majorant_v=maj_v,
+            term=sw.term, fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0,
+            exit_map=exit_map)
     else:
         # ---- shaded (diffuse/shadow) path ---------------------------------
         light_dir = safe_normalize(scene.light.direction)
@@ -565,11 +571,13 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
             k1o=direction[w1] if ortho else zdt,
             k2o=direction[w2] if ortho else zdt, inv_da=inv_da,
             dzdlam=dz * dlam, n_la=n_la, wtcp=wtcp, **common)
+        trace.stage("k1", dev)
         out8 = swslice.slice_composite(
             grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=mode, lgrid=lgrid,
             k0l=k0l, lights=lights, n_dir=n_dir, majorant_v=maj_v,
             term=sw.term, fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0,
             exit_map=exit_map)
+    trace.stage("warp", dev)
     color = out8[0:3].permute(1, 2, 0)
     grad = out8[3:6].permute(1, 2, 0)
     depth, alpha = out8[6], out8[7]
