@@ -43,10 +43,16 @@ from ovr_tpu_torch.render import (geometry, lightgrid, multivol, pathtracer,
                                   ptdense, shearwarp, sparse)
 from ovr_tpu_torch.render.camera import (blended_flow, camera_basis,
                                          generate_rays, pixel_screen_coords)
-from ovr_tpu_torch.utils import trace
+from ovr_tpu_torch.utils import readback, trace
 
 READBACK_BYTES = 0  # bytes `Renderer.mapframe` returned to the host
+READBACK_PINNED_BYTES = 0  # of those, bytes that landed in a pooled buffer
+READBACK_PINNED_ALLOCS = 0  # pooled host buffers made
 trace.register_counter("api.READBACK_BYTES", lambda: READBACK_BYTES)
+trace.register_counter("api.READBACK_PINNED_BYTES",
+                       lambda: READBACK_PINNED_BYTES)
+trace.register_counter("api.READBACK_PINNED_ALLOCS",
+                       lambda: READBACK_PINNED_ALLOCS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -573,15 +579,18 @@ class Renderer:
     resolves the config and builds the macrocells and the shadow lattice
     it needs (cached until the volume, TF or light changes), `render()`
     draws a frame (and accumulates, if enabled), `mapframe()` returns
-    numpy arrays. With sparse sampling on, `render()` marches a budget of
-    W*H/8 rays chosen around the focus (`render.sparse.render_sparse`)
-    and scatters them into the last frame. A dense path-traced config
-    caches the scatter lattices (`_pt_fields`) until the volume, TF or
-    density scale changes. A neural field's shear-warp frames render a
-    proxy baked once (`_proxy_grid`, `bake_grid_host`); its macrocells
-    come from a min(max_resolution, 256)^3 bake. `commit` and `render`
-    run without autograd. The setters, `commit`, `render` and `mapframe`
-    open the spans of `utils.trace` (recorded under a torch profiler);
+    numpy arrays that belong to the caller and stay valid after the next
+    frame (from the card, up to `readback.BUDGET` of them in page-locked
+    buffers the Renderer reuses once the caller drops them). With sparse
+    sampling on, `render()` marches a budget of W*H/8 rays chosen around
+    the focus (`render.sparse.render_sparse`) and scatters them into the
+    last frame. A dense path-traced config caches the scatter lattices
+    (`_pt_fields`) until the volume, TF or density scale changes. A
+    neural field's shear-warp frames render a proxy baked once
+    (`_proxy_grid`, `bake_grid_host`); its macrocells come from a
+    min(max_resolution, 256)^3 bake. `commit` and `render` run without
+    autograd. The setters, `commit`, `render` and `mapframe` open the
+    spans of `utils.trace` (recorded under a torch profiler);
     `render_time` sums `render()`'s host time after its commit, the wait
     for the card included."""
 
@@ -602,6 +611,7 @@ class Renderer:
         self._dirty = True
         self.render_time = 0.0
         self.variance = float("inf")
+        self._host = readback.HostBuffers()
 
     @property
     def _device(self):
@@ -781,19 +791,36 @@ class Renderer:
 
     def mapframe(self) -> dict[str, np.ndarray]:
         """The frame's buffers as host arrays (rgba, grad, and depth and
-        flow where the frame has them); the frame's spans end here."""
-        global READBACK_BYTES
+        flow where the frame has them); the frame's spans end here.
+
+        The arrays belong to the caller and keep their values after later
+        frames. From the card, each is copied into a page-locked host
+        buffer of the Renderer's pool (`utils.readback`), reused only once
+        the caller holds neither the array nor any view of it; past the
+        pool's budget, into fresh pageable memory. A CPU frame's arrays are
+        its tensors' own memory, as `Tensor.numpy()` gives them."""
+        global READBACK_BYTES, READBACK_PINNED_BYTES, READBACK_PINNED_ALLOCS
         if self._frame is None:
             raise RuntimeError("render() first")
         f = self._frame
+        bufs = {name: t for name, t in (("rgba", f.rgba), ("grad", f.grad),
+                                        ("depth", f.depth),
+                                        ("flow", f.flow)) if t is not None}
         out = {}
+        made = self._host.made
         with trace.span("mapframe", self._device):
-            for name, t in (("rgba", f.rgba), ("grad", f.grad),
-                            ("depth", f.depth), ("flow", f.flow)):
-                if t is None:
-                    continue
+            self._host.keep_only({(tuple(t.shape), t.dtype)
+                                  for t in bufs.values()})
+            for name, t in bufs.items():
                 with trace.span(name, t.device):
-                    out[name] = t.detach().cpu().numpy()
-                    READBACK_BYTES += out[name].nbytes
+                    a = self._host.copy(t)
+                    if a is None:
+                        a = t.detach().cpu().numpy()
+                    else:
+                        READBACK_PINNED_BYTES += a.nbytes
+                    out[name] = a
+                    READBACK_BYTES += a.nbytes
+            self._host.wait()
+            READBACK_PINNED_ALLOCS += self._host.made - made
         trace.end_frame()
         return out

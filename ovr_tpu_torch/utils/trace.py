@@ -78,6 +78,11 @@ def register_counter(name: str, read: Callable[[], int]) -> None:
     _counters[name] = read
 
 
+def counters() -> list:
+    """The names of the registered counters."""
+    return list(_counters)
+
+
 def _stack() -> list:
     stack = getattr(_local, "stack", None)
     if stack is None:

@@ -43,8 +43,8 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 NEW = {"plan_ms", "value_ranges_ms", "majorants_ms", "frame_setup_ms",
        "warp_ms", "issue_ms", "readback_mb", "readback_gb_per_s",
-       "setter_stall_ms"}
-HOST_READERS = {"plan_ms", "issue_ms", "readback_mb"}
+       "setter_stall_ms", "readback_pinned_pct"}
+HOST_READERS = {"plan_ms", "issue_ms", "readback_mb", "readback_pinned_pct"}
 TINY = {"dims_xyz": [20, 18, 22],
         "render": {"width": 48, "height": 32, "sampling_rate": 24.0}}
 SEED = 3_000_000_019
@@ -206,8 +206,9 @@ def test_march_frame_counts_its_steps():
 
 def test_counters_registered_by_name(monkeypatch):
     for name in ("swslice.LAUNCHES", "swslice.LAUNCHES_BF16",
-                 "integrator.STEPS", "api.READBACK_BYTES"):
-        assert name in trace._counters
+                 "integrator.STEPS", "api.READBACK_BYTES",
+                 "api.READBACK_PINNED_BYTES", "api.READBACK_PINNED_ALLOCS"):
+        assert name in trace.counters()
     with profile():
         with trace.span("outer"):
             with trace.span("launch"):
@@ -371,7 +372,8 @@ def test_readers_on_a_made_up_traced_frame(monkeypatch):
             ("render.warp", 4, 5.0, 6.0, 5.0, 6.0, {}),
             ("render.wait", 4, 6.0, 6.9, 6.0, 6.9, {}),
             ("mapframe", 0, 7.1, 9.9, 7.2, 9.9,
-             {"api.READBACK_BYTES": 3_000_000}),
+             {"api.READBACK_BYTES": 3_000_000,
+              "api.READBACK_PINNED_BYTES": 1_500_000}),
             ("mapframe.rgba", 9, 7.1, 9.0, 7.2, 9.0,
              {"api.READBACK_BYTES": 3_000_000})]
     spans = [trace.Span(n, i + 1, parent, 7, round(a * ms) - off,
@@ -379,13 +381,14 @@ def test_readers_on_a_made_up_traced_frame(monkeypatch):
                         counts)
              for i, (n, parent, a, b, d0, d1, counts) in enumerate(rows)]
     monkeypatch.setitem(sys.modules, program_spans.MODULE,
-                        types.SimpleNamespace(spans=lambda: spans))
+                        types.SimpleNamespace(spans=lambda: spans,
+                                              counters=trace.counters))
     run_ = types.SimpleNamespace(trace=td,
                                  spans=types.SimpleNamespace(items=items))
     want = {"plan_ms": 0.6, "frame_setup_ms": 0.2, "warp_ms": 0.5,
             "issue_ms": 3.9, "readback_mb": 3.0, "readback_gb_per_s": 2.0,
             "setter_stall_ms": 0.75, "value_ranges_ms": 0.0,
-            "majorants_ms": 0.0}
+            "majorants_ms": 0.0, "readback_pinned_pct": 50.0}
     for name, v in want.items():
         got = run.load_module(ROOT, f"ovrbench/metrics/{name}.py").read(run_)
         assert got == pytest.approx(v, abs=1e-6), name
@@ -396,6 +399,11 @@ def test_readers_on_a_made_up_traced_frame(monkeypatch):
     assert sum(p.idle.values()) == pytest.approx(
         (td.window_s - td.busy_s) * 1e9)
     assert p.idle[program_spans.NO_SPAN] == pytest.approx(0.8 * ms)
+    # a program that registers no pinned counter (an older one) reads None
+    monkeypatch.setitem(sys.modules, program_spans.MODULE,
+                        types.SimpleNamespace(spans=lambda: spans))
+    assert run.load_module(ROOT, "ovrbench/metrics/readback_pinned_pct.py"
+                           ).read(run_) is None
 
 
 def test_a_program_without_spans_reads_none(monkeypatch):
@@ -481,6 +489,8 @@ def test_cell_host_readers_finite(cpu_runs, name):
     assert not (set(res["metrics"]) & (mine - HOST_READERS))
     assert res["metrics"]["readback_mb"]["value"] == pytest.approx(
         FRAME_BYTES / 1e6)
+    # frames on the host take no page-locked buffer
+    assert res["metrics"]["readback_pinned_pct"]["value"] == 0.0
     assert res["metrics"]["issue_ms"]["value"] > 0
 
 
@@ -528,6 +538,16 @@ def test_card_warp_kernels_in_the_warp(card_runs):
     for m in NEW & {"frame_setup_ms", "warp_ms", "readback_gb_per_s",
                     "readback_mb", "issue_ms", "setter_stall_ms"}:
         assert math.isfinite(res["metrics"][m]["value"]), m
+
+
+@pytest.mark.cuda
+def test_card_readback_lands_in_page_locked_buffers(card_runs):
+    res, run_ = card_runs[True]
+    assert res["metrics"]["readback_pinned_pct"]["value"] == 100.0
+    p = program_spans.placed(run_)
+    assert p.count("mapframe", "api.READBACK_PINNED_BYTES") == p.count(
+        "mapframe", program_spans.READBACK) > 0
+    assert res["correct"]
 
 
 @pytest.mark.cuda
