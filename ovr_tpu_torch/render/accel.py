@@ -8,8 +8,9 @@ range. The fused slice kernel skips planes whose covering majorants are
 all <= 1.19e-7; the march asks the grid for the majorant at a point and
 for the distance to the exit of the cell around it (`majorant_at`,
 `cell_exit_t`: the lockstep form of a per-ray DDA). JAX's
-`reduce_window` becomes a -inf pad plus `max_pool3d` (min = -max of the
-negation).
+`reduce_window` over the whole grid becomes a build one z-slab of
+macrocell layers at a time (`compute_value_ranges`), so that its
+temporaries stay within `VALUE_RANGE_BUDGET` whatever the grid's size.
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ from ovr_tpu_torch.core.sampling import axis_constants, storage_scale
 from ovr_tpu_torch.utils import trace
 
 MACROCELL_SIZE = 16
+WINDOW = MACROCELL_SIZE + 2  # a cell's voxels and one of halo each side
+VALUE_RANGE_BUDGET = 512 << 20  # bytes of temporaries a value-range slab
+
+VALUE_RANGE_SLABS = 0  # slabs built by `compute_value_ranges`
+trace.register_counter("accel.VALUE_RANGE_SLABS", lambda: VALUE_RANGE_SLABS)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -86,28 +92,101 @@ class MacrocellGrid:
         return t_far.amin(dim=-1) + eps
 
 
+def _pool_dtype(dtype) -> torch.dtype:
+    """u8 and bf16 grids pool in bfloat16 (exact for integers <= 256),
+    others in float32."""
+    return (torch.bfloat16 if dtype in (torch.bfloat16, torch.uint8)
+            else torch.float32)
+
+
+def _back(n: int) -> int:
+    """Voxels past the end of an axis of n that its last window reaches."""
+    return (_cdiv(n, MACROCELL_SIZE) - 1) * MACROCELL_SIZE + WINDOW - 1 - n
+
+
+def _widened(x, dim: int, back: int):
+    """x along `dim` with its first element repeated once before it and
+    its last `back` times after it. A window reaching past the grid's
+    edge holds the edge voxel too, so the repeats change no window's max
+    or min: they stand for the -inf and +inf pads of JAX's
+    `reduce_window`."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 0, 1), x]
+                     + [x.narrow(dim, n - 1, 1)] * back, dim)
+
+
+def _windows(x, dim: int):
+    """The windows of 18 at stride 16 along `dim`, as a last dim."""
+    return x.unfold(dim, WINDOW, MACROCELL_SIZE)
+
+
+def _slab_bytes(layers: int, dims, wdt) -> int:
+    """Bytes of the temporaries of a slab of `layers` macrocell layers,
+    its planes copied into a buffer of the pooling type."""
+    _, yd, xd = dims
+    my, mx = _cdiv(yd, MACROCELL_SIZE), _cdiv(xd, MACROCELL_SIZE)
+    n = (layers * MACROCELL_SIZE + 2) * yd * xd
+    # per extreme: the z windows' result, it widened along y, the y
+    # windows' result, it widened along x, and the cells
+    n += 2 * layers * (yd * xd + (yd + 1 + _back(yd)) * xd + my * xd
+                       + my * (xd + 1 + _back(xd)) + my * mx)
+    return n * wdt.itemsize
+
+
+def _slab_layers(dims, wdt) -> int:
+    """Macrocell layers a slab: the most whose temporaries fit
+    `VALUE_RANGE_BUDGET` (at least one)."""
+    mz = _cdiv(dims[0], MACROCELL_SIZE)
+    layers = 1
+    while (layers < mz and _slab_bytes(layers + 1, dims, wdt)
+           <= VALUE_RANGE_BUDGET):
+        layers += 1
+    return layers
+
+
 def compute_value_ranges(grid: torch.Tensor):
-    """Per-macrocell (lo, hi) in normalized units. u8 and bf16 grids pool
-    in bfloat16 (exact for integers <= 256), others in float32; the
-    storage scale applies to the small per-cell results."""
+    """Per-macrocell (lo, hi) in normalized units: the min and max over an
+    18-voxel window at stride 16, one voxel of halo each side. The grid
+    is read one z-slab of macrocell layers at a time, sized from
+    `VALUE_RANGE_BUDGET`: the slab's planes with their halo, cast to the
+    pooling type (`_pool_dtype`; a view of the grid where no cast or edge
+    is needed), are reduced along z, then y, then x. Max and min are
+    exact, so the slabs and the order change no bit. No value comes to
+    the host. The storage scale applies to the small per-cell results."""
+    global VALUE_RANGE_SLABS
     dims = tuple(grid.shape)
-    mc = [_cdiv(d, MACROCELL_SIZE) for d in dims]
-    window = MACROCELL_SIZE + 2
-    pads = [(1, (m - 1) * MACROCELL_SIZE + window - 1 - d)
-            for m, d in zip(mc, dims)]
-    flat_pad = [p for zyx in reversed(pads) for p in zyx]  # x, y, z order
-    wdt = (torch.bfloat16 if grid.dtype in (torch.bfloat16, torch.uint8)
-           else torch.float32)
-    x = grid.to(wdt)[None, None]
-
-    def pool_max(v):
-        v = F.pad(v, flat_pad, value=float("-inf"))
-        return F.max_pool3d(v, window, MACROCELL_SIZE)[0, 0]
-
-    hi = pool_max(x)
-    lo = -pool_max(-x)
+    zd = dims[0]
+    mz = _cdiv(zd, MACROCELL_SIZE)
+    wdt = _pool_dtype(grid.dtype)
+    layers = _slab_layers(dims, wdt)
+    los, his = [], []
+    for a in range(0, mz, layers):
+        b = min(a + layers, mz)
+        z0 = max(a * MACROCELL_SIZE - 1, 0)
+        z1 = min(b * MACROCELL_SIZE + 1, zd)
+        front = z0 - (a * MACROCELL_SIZE - 1)
+        back = b * MACROCELL_SIZE + 1 - z1
+        if wdt != grid.dtype or front or back:
+            x = grid.new_empty((front + z1 - z0 + back,) + dims[1:],
+                               dtype=wdt)
+            x[front:front + z1 - z0] = grid[z0:z1]
+            if front:
+                x[0] = x[1]
+            if back:
+                x[-back:] = x[-back - 1]
+        else:
+            x = grid[z0:z1]
+        lo, hi = torch.aminmax(_windows(x, 0), dim=-1)
+        del x
+        for dim in (1, 2):
+            back_d = _back(lo.shape[dim])
+            lo = _windows(_widened(lo, dim, back_d), dim).amin(-1)
+            hi = _windows(_widened(hi, dim, back_d), dim).amax(-1)
+        los.append(lo)
+        his.append(hi)
+        VALUE_RANGE_SLABS += 1
     s = storage_scale(grid.dtype)
-    return lo.float() * s, hi.float() * s
+    return torch.cat(los).float() * s, torch.cat(his).float() * s
 
 
 def _range_max_table(alpha: torch.Tensor) -> list[torch.Tensor]:

@@ -854,3 +854,72 @@ def test_shearwarp_frame_never_waits_for_the_card(shading):
             torch.cuda.set_sync_debug_mode(0)
     assert swslice.LAUNCHES == before + 1
     assert torch.isfinite(frame.rgba).all()
+
+
+def _plain_windows(v, dim, reduce, neutral):
+    """`reduce` over each 18-voxel window at stride 16 along `dim`, one
+    voxel in front of the axis; voxels outside the axis count as
+    `neutral`."""
+    n = v.shape[dim]
+    m = -(-n // 16)
+    idx = (torch.arange(m, device=v.device)[:, None] * 16 - 1
+           + torch.arange(18, device=v.device))
+    t = v.index_select(dim, idx.clamp(0, n - 1).reshape(-1))
+    t = t.unflatten(dim, (m, 18))
+    shape = [1] * t.dim()
+    shape[dim], shape[dim + 1] = m, 18
+    outside = ((idx < 0) | (idx >= n)).reshape(shape)
+    return reduce(t.masked_fill(outside, neutral), dim + 1)
+
+
+@pytest.mark.cuda
+def test_value_ranges_of_a_published_u8_grid_within_the_budget():
+    """The macrocell value ranges of a 2048 x 2048 x 1920 u8 grid
+    (Richtmyer-Meshkov's size) built on the card: while building, no
+    value comes to the host and the memory allocated rises by at most the
+    slab budget and 64 MiB over the grid; the cells equal a plain
+    block-by-block amax and amin, one layer of macrocells at a time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    zd, yd, xd = dims = (1920, 2048, 2048)
+    grid = torch.empty(dims, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    yy = torch.arange(yd, device=dev)[None, :, None]
+    xx = torch.arange(xd, device=dev)[None, None, :]
+    for k in range(0, zd, 64):  # blocks whose edges miss the windows'
+        zz = torch.arange(k, min(k + 64, zd), device=dev)[:, None, None]
+        v = (zz // 40) * 37 + (yy // 24) * 11 + (xx // 56) * 5
+        v = v + torch.randint(0, 4, v.shape, generator=gen, device=dev)
+        grid[k:k + 64] = (v % 256).to(torch.uint8)
+    del yy, xx, zz, v
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    slabs0 = accel.VALUE_RANGE_SLABS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        lo, hi = accel.compute_value_ranges(grid)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    print(f"value ranges of {dims} u8: {start.elapsed_time(end):.2f} ms, "
+          f"{accel.VALUE_RANGE_SLABS - slabs0} slabs, peak "
+          f"{torch.cuda.max_memory_allocated()} B, {rise} B over the "
+          f"{base} B before (grid {grid.numel()} B)")
+    assert rise <= accel.VALUE_RANGE_BUDGET + (64 << 20)
+    want_lo, want_hi = [], []
+    for k in range(-(-zd // 16)):
+        block = grid[max(16 * k - 1, 0):16 * k + 17]
+        for want, reduce, neutral in ((want_lo, torch.amin, 255),
+                                      (want_hi, torch.amax, 0)):
+            t = reduce(block, 0)
+            t = _plain_windows(t, 0, reduce, neutral)
+            want.append(_plain_windows(t, 1, reduce, neutral))
+    s = 1.0 / 255.0
+    assert torch.equal(lo, torch.stack(want_lo).float() * s)
+    assert torch.equal(hi, torch.stack(want_hi).float() * s)

@@ -207,7 +207,8 @@ def test_march_frame_counts_its_steps():
 def test_counters_registered_by_name(monkeypatch):
     for name in ("swslice.LAUNCHES", "swslice.LAUNCHES_BF16",
                  "integrator.STEPS", "api.READBACK_BYTES",
-                 "api.READBACK_PINNED_BYTES", "api.READBACK_PINNED_ALLOCS"):
+                 "api.READBACK_PINNED_BYTES", "api.READBACK_PINNED_ALLOCS",
+                 "accel.VALUE_RANGE_SLABS"):
         assert name in trace.counters()
     with profile():
         with trace.span("outer"):
