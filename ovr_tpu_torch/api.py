@@ -332,7 +332,7 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
            macrocells: Optional[accel.MacrocellGrid] = None,
            last_camera: Optional[Camera] = None,
            light_grid: Optional[torch.Tensor] = None,
-           pt_fields=None, proxy_grid=None) -> Frame:
+           pt_fields=None, proxy_grid=None, _setup_graphs=None) -> Frame:
     """Render one frame, on the scene's device.
 
     `cfg` must be resolved (`cfg.resolved(scene)`); `cfg.sw` set means
@@ -360,7 +360,9 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
     of a neural field's tables and weights (through the bake, or the
     march).
     Under grad shear-warp's slice loop runs without early termination;
-    the march needs `fast_math=False` (its while loop is forward-only)."""
+    the march needs `fast_math=False` (its while loop is forward-only).
+    `_setup_graphs`: the `Renderer`'s `shearwarp.SetupGraphs`, for a
+    single-volume shear-warp frame."""
     if cfg.max_steps is None:
         raise ValueError("call cfg.resolved(scene) first")
     if camera is None:
@@ -384,7 +386,8 @@ def render(scene: Scene, cfg: RenderConfig, camera: Optional[Camera] = None,
         light_grid = _inline_light_grid(scene, cfg)
     if cfg.sw is not None:
         return _render_shearwarp_frame(scene, cfg, camera, generator,
-                                       last_camera, light_grid, macrocells)
+                                       last_camera, light_grid, macrocells,
+                                       _setup_graphs)
     return _render_march_frame(scene, cfg, camera, generator, last_camera,
                                light_grid, macrocells)
 
@@ -492,10 +495,11 @@ def _sw_instances(scene: Scene, cfg: RenderConfig, camera: Camera, off):
 
 def _render_shearwarp_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
                             generator, last_camera, light_grid=None,
-                            macrocells=None) -> Frame:
+                            macrocells=None, setup_graphs=None) -> Frame:
     """Shear-warp frame; spp > 1 stratifies the sample-plane offset,
     `jitter_rays` draws it at random. A tuple of plans renders the
-    scene's volumes one by one (`_sw_instances`)."""
+    scene's volumes one by one (`_sw_instances`); one plan replays its
+    setup through `setup_graphs` where that can."""
     dev = scene.device
     acc = None
     for s in range(cfg.spp):
@@ -510,7 +514,8 @@ def _render_shearwarp_frame(scene: Scene, cfg: RenderConfig, camera: Camera,
         else:
             out = shearwarp.render_shearwarp(scene, cfg, camera, jitter=off,
                                              light_grid=light_grid,
-                                             macrocells=macrocells)
+                                             macrocells=macrocells,
+                                             setup_graphs=setup_graphs)
         acc = out if acc is None else tuple(a + o for a, o in zip(acc, out))
     if cfg.spp > 1:
         acc = tuple(a * (1.0 / cfg.spp) for a in acc)
@@ -589,8 +594,11 @@ class Renderer:
     neural field's shear-warp frames render a proxy baked once
     (`_proxy_grid`, `bake_grid_host`); its macrocells come from a
     min(max_resolution, 256)^3 bake. `commit` and `render` run without
-    autograd. The setters, `commit`, `render` and `mapframe` open the
-    spans of `utils.trace` (recorded under a torch profiler);
+    autograd. On the card a shear-warp frame's setup is captured as a
+    CUDA graph once per plan and replayed after
+    (`shearwarp.SetupGraphs`, freed with the Renderer). The setters,
+    `commit`, `render` and `mapframe` open the spans of `utils.trace`
+    (recorded under a torch profiler);
     `render_time` sums `render()`'s host time after its commit, the wait
     for the card included."""
 
@@ -612,6 +620,8 @@ class Renderer:
         self.render_time = 0.0
         self.variance = float("inf")
         self._host = readback.HostBuffers()
+        # the shear-warp setups captured as CUDA graphs, one per plan
+        self._setup_graphs = shearwarp.SetupGraphs()
 
     @property
     def _device(self):
@@ -775,7 +785,8 @@ class Renderer:
                            macrocells=self._macrocells,
                            light_grid=self._light_grid,
                            pt_fields=self._pt_fields,
-                           proxy_grid=self._proxy_grid)
+                           proxy_grid=self._proxy_grid,
+                           _setup_graphs=self._setup_graphs)
         if self._accumulating:
             frame, self._accum = accumulate(frame, self._accum,
                                             self._frame_index)

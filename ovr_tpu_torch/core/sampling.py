@@ -12,6 +12,7 @@ Every clip is `clip` (min of max), whose gradient halves at a bound as
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -28,11 +29,35 @@ def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
+_fresh = False  # inside `fresh_constants`
+
+
 @functools.lru_cache(maxsize=256)
+def _cached_scalar(value: float, dtype, device) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def scalar(value: float, dtype, device) -> torch.Tensor:
     """A 0-d constant, made once per (value, dtype, device): a
-    `torch.maximum` bound without a fill launch per call. Read-only."""
-    return torch.full((), value, dtype=dtype, device=device)
+    `torch.maximum` bound without a fill launch per call. Read-only.
+    Inside `fresh_constants`, a new one each call."""
+    if _fresh:
+        return torch.full((), value, dtype=dtype, device=device)
+    return _cached_scalar(value, dtype, device)
+
+
+@contextlib.contextmanager
+def fresh_constants():
+    """`scalar` makes a new constant each call inside. A CUDA graph
+    captured there fills its own constants and reads them by address; a
+    cached one could leave the cache and its memory be reused while the
+    graph still reads it."""
+    global _fresh
+    was, _fresh = _fresh, True
+    try:
+        yield
+    finally:
+        _fresh = was
 
 
 @functools.lru_cache(maxsize=64)

@@ -18,6 +18,13 @@ the slice loop's backward is the bounded-memory analytic adjoint, and
 the warp and the rest are plain tensor ops that autograd
 differentiates.
 
+The work before the slice loop (`frame_setup`: the fan, the plane
+schedule, the RGBA table and the kernel's scalars; some 300 small
+operations) depends on the plan and a few small tensors only. A
+`Renderer` on the card captures it as a CUDA graph once per plan and
+replays it in later frames (`SetupGraphs`): the same kernels, the same
+bits, one launch. Every other caller runs it eagerly.
+
 The plan keeps the fields of `ovr_tpu`'s `SwStatic` that change results;
 the TPU's VMEM tiling fields have no counterpart here (README, "TPU knobs
 on Hopper").
@@ -25,21 +32,34 @@ on Hopper").
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ovr_tpu_torch.core import sampling
 from ovr_tpu_torch.core.sampling import (clip, intersect_box, safe_normalize,
                                          scalar)
-from ovr_tpu_torch.core.scene import ORTHOGRAPHIC
+from ovr_tpu_torch.core.scene import ORTHOGRAPHIC, PERSPECTIVE, Camera
 from ovr_tpu_torch.neural.field import is_field
 from ovr_tpu_torch.ops import adjoint, swslice
 from ovr_tpu_torch.render import geometry
 from ovr_tpu_torch.render.ptdense import full_f32
 from ovr_tpu_torch.render.camera import camera_basis
 from ovr_tpu_torch.utils import trace
+
+SETUP_REPLAYS = 0  # frames whose setup replayed a captured CUDA graph
+SETUP_CAPTURES = 0  # frames whose setup ran eagerly and was then captured
+SETUP_EAGER = 0  # frames whose setup ran eagerly only
+trace.register_counter("shearwarp.SETUP_REPLAYS", lambda: SETUP_REPLAYS)
+trace.register_counter("shearwarp.SETUP_CAPTURES", lambda: SETUP_CAPTURES)
+trace.register_counter("shearwarp.SETUP_EAGER", lambda: SETUP_EAGER)
+# captured setups a `SetupGraphs` keeps: an interior eye's trims (up to
+# 8 a view direction) besides an orbit's four plans; ~38 KB of the card
+# each
+SETUP_GRAPHS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,10 +259,21 @@ def _volume_view(grid: torch.Tensor, axis: int, sign: int) -> torch.Tensor:
     return g.flip(0) if sign < 0 else g
 
 
-def _safe_div(a, b, eps=1e-9):
-    d = torch.where(torch.abs(b) < eps,
-                    torch.where(b < 0, -eps, eps).to(b.dtype), b)
-    return a / d
+def _safe_div(a, b):
+    return a / _safe_den(b)
+
+
+def _safe_den(b, out=None, scratch=(None, None), mask=None):
+    """`b`, or 1e-9 with its sign where |b| < 1e-9 (+1e-9 at -0.0): a
+    denominator safe to divide by. `out` (which may be `b`), the two
+    `scratch` planes of b's shape and dtype and the bool `mask` are
+    buffers to work in, or None."""
+    eps = float(np.float32(1e-9))  # the JAX package's f32 constant
+    tiny = torch.where(torch.lt(b, 0, out=mask),
+                       scalar(-eps, b.dtype, b.device),
+                       scalar(eps, b.dtype, b.device), out=scratch[0])
+    small = torch.lt(torch.abs(b, out=scratch[1]), 1e-9, out=mask)
+    return torch.where(small, tiny, b, out=out)
 
 
 def _common_rgba_table(color_table, alpha_table):
@@ -304,26 +335,28 @@ def _kernel_scalars(dt, device, *, lo1, ex1, lo2, ex2, e1, e2, dw1, dw2,
     return torch.stack([as_t(x) for x in vals])
 
 
-def _extra_lights_fan(scene, w1, w2, axis, dt):
-    """The scene's extra lights as the slice loop's light table (L, 4)
-    and its count of directional rows, or (None, 0) without any:
-    directional (and sunSky) lights first, as (d_w1, d_w2, d_axis, I),
-    then point lights, as (p_w1, p_w2, p_axis, I), each with
+def _setup_lights(scene) -> list:
+    """The scene's lights that shade in the slice loop, directional (and
+    sunSky) ones first, then point lights: ambient lights add nothing
+    there, as in the JAX package."""
+    return ([lt for lt in scene.lights if lt.kind in ("directional",
+                                                      "sunsky")]
+            + [lt for lt in scene.lights if lt.kind == "point"])
+
+
+def _extra_lights_fan(lights, n_dir, w1, w2, axis, dt):
+    """The extra lights (`_setup_lights`, as (vector, intensity, color),
+    the first `n_dir` directional) as the slice loop's light table
+    (L, 4), or None without any: directional rows (d_w1, d_w2, d_axis,
+    I), then point rows (p_w1, p_w2, p_axis, I), each with
     I = 2 * intensity * mean(color) and its vector in fan-axis order
-    (`ovr_tpu.render.shearwarp._extra_lights_fan`). Ambient lights add
-    nothing here, as there."""
-    dirs, pts = [], []
-    for lt in scene.lights:
-        inten = 2.0 * lt.intensity * torch.mean(lt.color)
-        if lt.kind in ("directional", "sunsky"):
-            d = safe_normalize(lt.direction)
-            dirs.append(torch.stack([d[w1], d[w2], d[axis], inten]))
-        elif lt.kind == "point":
-            p = lt.position
-            pts.append(torch.stack([p[w1], p[w2], p[axis], inten]))
-    if not dirs and not pts:
-        return None, 0
-    return torch.stack(dirs + pts).to(dt), len(dirs)
+    (`ovr_tpu.render.shearwarp._extra_lights_fan`)."""
+    rows = []
+    for i, (vec, intensity, color) in enumerate(lights):
+        inten = 2.0 * intensity * torch.mean(color)
+        d = safe_normalize(vec) if i < n_dir else vec
+        rows.append(torch.stack([d[w1], d[w2], d[axis], inten]))
+    return torch.stack(rows).to(dt) if rows else None
 
 
 def _fan_rays(pg, qg, e, direction, axis, sign, ortho):
@@ -347,13 +380,339 @@ def _fan_rays(pg, qg, e, direction, axis, sign, ortho):
 
 
 # ---------------------------------------------------------------------------
+# the frame setup: fan, plane schedule, RGBA table, scalars
+# ---------------------------------------------------------------------------
+
+class SetupKey(NamedTuple):
+    """Every Python value and shape that `frame_setup` reads: two frames
+    of one key run the same operations on inputs of the same shapes. The
+    plan's `separable`, `swap`, `term`, `bf16` and `fd_grad` are left
+    out: only the slice loop and the warp read them."""
+
+    axis: int
+    sign: int
+    n_slices: int
+    slice0_static: int
+    inter_h: int
+    inter_w: int
+    width: int
+    height: int
+    mode: Optional[int]  # the slice loop's; None: the path tracer's gather
+    ortho: bool
+    dtype: torch.dtype
+    base_rate: float
+    n_a: int  # the grid's length along the axis
+    n_color: int  # TF table lengths
+    n_alpha: int
+    l_a: int  # the shadow lattice's length along the axis (mode 2), or 0
+    n_dir: int  # extra lights: directional, then point
+    n_point: int
+    jitter: bool
+    device: torch.device
+
+
+def setup_key(scene, cfg, camera, jitter, mode, n_a, l_a, device) -> SetupKey:
+    """The key of a frame of `scene` through the plan `cfg.sw`: `mode`,
+    `n_a`, `l_a` and `device` as `SetupKey` has them."""
+    sw = cfg.sw
+    lights = _setup_lights(scene)
+    n_dir = sum(lt.kind != "point" for lt in lights)
+    return SetupKey(
+        sw.axis, sw.sign, sw.n_slices, sw.slice0_static, sw.inter_h,
+        sw.inter_w, cfg.width, cfg.height, mode,
+        camera.kind == ORTHOGRAPHIC, cfg.dtype, float(cfg.base_rate), n_a,
+        scene.tfn.color.shape[0], scene.tfn.alpha.shape[0], l_a, n_dir,
+        len(lights) - n_dir, jitter is not None, torch.device(device))
+
+
+def setup_inputs(scene, camera, jitter) -> tuple:
+    """The tensors `frame_setup` reads, in its order: the camera's
+    from_, at, up, fovy and height; the volume's world box; the TF's
+    color, alpha and value range; the light's direction; (vector,
+    intensity, color) of each extra light (`_setup_lights`); then
+    `jitter`, where given (a tensor or a number)."""
+    vol, tfn = scene.volume, scene.tfn
+    x = [camera.from_, camera.at, camera.up, camera.fovy, camera.height,
+         vol.world_lo, vol.world_hi, tfn.color, tfn.alpha, tfn.value_range,
+         scene.light.direction]
+    for lt in _setup_lights(scene):
+        x += [lt.position if lt.kind == "point" else lt.direction,
+              lt.intensity, lt.color]
+    return tuple(x) if jitter is None else (*x, jitter)
+
+
+def frame_setup(key: SetupKey, x, screen=None, row0=None, n_rows=None,
+                sample_box=None, clip_box=None, slice0=None,
+                n_slices_loc=None) -> dict:
+    """The frame's work before the slice loop, from the inputs
+    (`setup_inputs`) and the key's values alone: the screen's fan
+    coordinates and their ranges, the fan's rays `pg`/`qg`, the plane
+    schedule `k0` (and mode 2's `k0l`), the merged RGBA table, the
+    light table and the scalar vector. Returns what the slice loop and
+    the warp read. `screen`: `screen_buffers(key)`, which receive p_scr,
+    q_scr and what makes them; without, they are new tensors. The hooks
+    are `render_shearwarp`'s."""
+    dt = key.dtype
+    opts = dict(dtype=dt, device=key.device)
+    axis, sign, ortho = key.axis, key.sign, key.ortho
+    w1, w2 = _perp_axes(axis)
+    (from_, at, up, fovy, height, lo, hi, color, alpha, value_range,
+     light_dir) = x[:11]
+    n_lights = key.n_dir + key.n_point
+    lights = [x[11 + 3 * i:14 + 3 * i] for i in range(n_lights)]
+    jitter = x[-1] if key.jitter else None
+    camera = Camera(from_, at, up, fovy, height,
+                    kind=ORTHOGRAPHIC if ortho else PERSPECTIVE)
+    n_a = key.n_a
+    ext = hi - lo
+    smp_lo, smp_hi = (lo, hi) if sample_box is None else sample_box
+    clp_lo, clp_hi = (lo, hi) if clip_box is None else clip_box
+    if slice0 is None:
+        # interior-eye trim: start at the plan's first plane that can
+        # cover any ray interval (a bricked caller passes its own range)
+        s0s = int(key.slice0_static)
+        slice0 = torch.full((), float(s0s), **opts)
+        if n_slices_loc is None:
+            n_slices_loc = key.n_slices - s0s
+    else:
+        slice0 = torch.as_tensor(slice0, **opts)
+    n_loc = key.n_slices if n_slices_loc is None else int(n_slices_loc)
+    e, direction, horizontal, vertical = camera_basis(camera, key.width,
+                                                      key.height)
+
+    # ---- screen ray-fan coordinates ---------------------------------------
+    u = (torch.arange(key.width, **opts) + 0.5) / key.width - 0.5
+    nr_loc = key.height if n_rows is None else int(n_rows)
+    base_row = 0.0 if row0 is None else float(row0)
+    v = (torch.arange(nr_loc, **opts) + 0.5 + base_row) / key.height - 0.5
+    p_out, q_out, den, mask = (None,) * 4 if screen is None else screen
+
+    def plane(c0, c, out):
+        # c0 + u * horizontal[c] + v * vertical[c] over the (H, W) screen:
+        # a row plus a column, with no screen-sized temporary
+        return torch.add((c0 + u * horizontal[c])[None, :],
+                         (v * vertical[c])[:, None], out=out)
+
+    if ortho:
+        p_scr = plane(e[w1], w1, p_out)
+        q_scr = plane(e[w2], w2, q_out)
+    else:
+        # the ray directions' components over the axial one, in the
+        # screen buffers where given (p_out and q_out serve as scratch
+        # until they take their own planes)
+        da = _safe_den(torch.mul(plane(direction[axis], axis, den), sign,
+                                 out=den), den, (p_out, q_out), mask)
+        p_scr = torch.div(plane(direction[w1], w1, p_out), da, out=p_out)
+        q_scr = torch.div(plane(direction[w2], w2, q_out), da, out=q_out)
+
+    def _rng(x):
+        m = 0.01 * (torch.max(x) - torch.min(x)) + 1e-6
+        return torch.min(x) - m, torch.max(x) + m
+
+    p_lo, p_hi = _rng(p_scr)
+    q_lo, q_hi = _rng(q_scr)
+    hi_i, wi_i = key.inter_h, key.inter_w
+    dp = (p_hi - p_lo) / wi_i
+    dq = (q_hi - q_lo) / hi_i
+    pg = p_lo + (torch.arange(wi_i, **opts) + 0.5) * dp
+    qg = q_lo + (torch.arange(hi_i, **opts) + 0.5) * dq
+    if ortho:
+        dlam = 1.0 / torch.clamp(torch.abs(direction[axis]), min=1e-12)
+        inv_da = 1.0 / torch.where(torch.abs(direction[axis]) < 1e-12,
+                                   torch.full_like(direction[axis], 1e-12),
+                                   direction[axis])
+    else:
+        dlam = 1.0
+        inv_da = torch.full((), float(sign), **opts)
+
+    # ---- sample-plane schedule --------------------------------------------
+    dz = ext[axis] / key.n_slices
+    off = (torch.full((), 0.5, **opts) if jitter is None
+           else torch.as_tensor(jitter, **opts))
+    jj = slice0 + torch.arange(n_loc, **opts)
+    z_rel = (jj + off) * dz
+    z_abs = lo[axis] + z_rel if sign > 0 else hi[axis] - z_rel
+    if ortho:
+        lam = (z_abs - e[axis]) / direction[axis]
+    else:
+        lam = (z_abs - e[axis]) * sign
+    s = dict(p_scr=p_scr, q_scr=q_scr, p_lo=p_lo, q_lo=q_lo, dp=dp, dq=dq,
+             pg=pg, qg=qg, u=u, v=v, e=e, direction=direction,
+             horizontal=horizontal, vertical=vertical, lam=lam, z_rel=z_rel,
+             dz=dz, dlam=dlam, n_loc=n_loc)
+    if key.mode is None:
+        return s  # the path tracer's gather reads the fan and schedule
+    # axial texel mapping through the sample box, traversal coordinates
+    smp0 = ((smp_lo[axis] - lo[axis]) if sign > 0
+            else (hi[axis] - smp_hi[axis]))
+    smp_ext = smp_hi[axis] - smp_lo[axis]
+    c = torch.clamp((z_rel - smp0) / smp_ext * n_a - 0.5, 0.0, n_a - 1.0)
+    s["k0"] = torch.clamp(torch.floor(c).to(torch.int32), 0, n_a - 2)
+    # the clip box's axial interval in ray-parameter units
+    den_a = direction[axis] if ortho else (1.0 / sign)
+    cl_a = (clp_lo[axis] - e[axis]) / den_a
+    cl_b = (clp_hi[axis] - e[axis]) / den_a
+    cla = torch.minimum(cl_a, cl_b)
+    cha = torch.maximum(cl_a, cl_b)
+    lo1, lo2 = smp_lo[w1], smp_lo[w2]
+    ex1, ex2 = smp_hi[w1] - smp_lo[w1], smp_hi[w2] - smp_lo[w2]
+
+    s["rgba_tab"] = _common_rgba_table(color, alpha)
+    base = key.base_rate * torch.ones((), **opts)
+    half = 0.5 * dz * dlam
+    clip_scalars = dict(
+        clo1=clp_lo[w1], cex1=clp_hi[w1] - clp_lo[w1], clo2=clp_lo[w2],
+        cex2=clp_hi[w2] - clp_lo[w2], cla=cla, cha=cha,
+        smp0=smp0, smpsc=n_a / smp_ext,
+        glo1=lo[w1], gex1=ext[w1], glo2=lo[w2], gex2=ext[w2],
+        za0=lo[axis] if sign > 0 else hi[axis], zsg=float(sign))
+    zdt = torch.zeros((), **opts)
+    common = dict(
+        lo1=lo1, ex1=ex1, lo2=lo2, ex2=ex2, e1=e[w1], e2=e[w2],
+        dw1=direction[w1] if ortho else zdt,
+        dw2=direction[w2] if ortho else zdt,
+        half=half, dz=dz, off=off + slice0, vr=value_range, base=base,
+        lam0=lam[0] - (off + slice0) * dz * dlam, n_a=n_a, dlam=dlam,
+        exa=ext[axis], ortho=ortho, **clip_scalars)
+    s["lights"] = s["k0l"] = None
+    if key.mode == 0:
+        s["sc"] = _kernel_scalars(dt, key.device, **common)
+        return s
+    # ---- shaded (diffuse/shadow) path -------------------------------------
+    light_dir = safe_normalize(light_dir)
+    wtc = torch.stack([safe_normalize(horizontal),
+                       safe_normalize(vertical), -direction])
+    wtcp = torch.stack([wtc[:, w1], wtc[:, w2], wtc[:, axis]], dim=1)
+    s["lights"] = _extra_lights_fan(lights, key.n_dir, w1, w2, axis, dt)
+    n_la = 2.0
+    if key.mode == 2:
+        l_a = key.l_a
+        cl = torch.clamp(z_rel / ext[axis] * l_a - 0.5, 0.0, l_a - 1.0)
+        s["k0l"] = torch.clamp(torch.floor(cl).to(torch.int32), 0,
+                               max(l_a - 2, 0))
+        n_la = float(l_a)
+    s["sc"] = _kernel_scalars(
+        dt, key.device, ld=(light_dir[w1], light_dir[w2], light_dir[axis]),
+        k1o=direction[w1] if ortho else zdt,
+        k2o=direction[w2] if ortho else zdt, inv_da=inv_da,
+        dzdlam=dz * dlam, n_la=n_la, wtcp=wtcp, **common)
+    return s
+
+
+def screen_buffers(key: SetupKey) -> tuple:
+    """The (height, width) buffers `frame_setup` makes its screen-sized
+    values in: p_scr, q_scr and their denominator in the key's dtype,
+    and a mask."""
+    opts = dict(device=key.device)
+    shape = (key.height, key.width)
+    return (*(torch.empty(shape, dtype=key.dtype, **opts) for _ in range(3)),
+            torch.empty(shape, dtype=torch.bool, **opts))
+
+
+def _graph_input(t, device) -> bool:
+    return isinstance(t, torch.Tensor) and t.device == device
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+class SetupGraphs:
+    """The frame setups of one `api.Renderer` captured as CUDA graphs,
+    one per `SetupKey`, the least recently used dropped past
+    `SETUP_GRAPHS`.
+
+    A key's first frame runs `frame_setup` eagerly: that is the frame's
+    setup, and the warm-up that a capture needs. It then captures the
+    function (which runs nothing) on copies of its inputs. Every later
+    frame of the key copies its inputs into those and replays the graph:
+    the same kernels on the same values, so the same bits, for a few
+    copies and one launch in place of some 300 dispatches.
+
+    All the graphs share one memory pool and one set of screen buffers
+    (`screen`): p_scr, q_scr, the denominator they divide by and a mask.
+    `frame_setup` makes every screen-sized value in those, so the pool
+    keeps the setup's small tensors only, and a Renderer holds one
+    frame's worth of setup memory however many plans it has seen. That
+    is safe because a frame reads its graph's outputs on the stream that
+    replayed it, before the next replay of any graph; a graph's outputs
+    hold until then.
+
+    A capture records on a side stream of its own and neither waits for
+    the card nor empties the allocator's cache, as `torch.cuda.graph`
+    does: a frame that captures issues without a host wait, as a replay
+    does, for some milliseconds more of host time."""
+
+    def __init__(self):
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._pool = self._stream = None
+        self._screen = None
+
+    @staticmethod
+    def replayable(key: SetupKey, x, *more) -> bool:
+        """Whether a frame of these inputs (`setup_inputs`) can replay: on
+        a CUDA device with every input there (`jitter` may be a number
+        anywhere), and no input, nor any of `more`, requiring grad."""
+        tensors = x[:-1] if key.jitter else x
+        return (key.device.type == "cuda"
+                and all(_graph_input(t, key.device) for t in tensors)
+                and not _wants_grad(*x, *more))
+
+    def setup(self, key: SetupKey, x) -> dict:
+        """`frame_setup(key, x)`, replayed where `key` was captured."""
+        global SETUP_REPLAYS, SETUP_CAPTURES
+        hit = self._graphs.get(key)
+        if hit is not None:
+            self._graphs.move_to_end(key)
+            graph, statics, out = hit
+            for st, t in zip(statics, x):
+                if _graph_input(t, key.device):
+                    st.copy_(t)
+                else:  # a jitter number: a fill, not a copy from the host
+                    st.fill_(float(t))
+            graph.replay()
+            SETUP_REPLAYS += 1
+            return out
+        p = self._screen[0] if self._screen is not None else None
+        if (p is None or p.shape != (key.height, key.width)
+                or p.dtype != key.dtype or p.device != key.device):
+            # a pool whose graphs are all gone cannot take another
+            # capture until the allocator frees it: take a new one
+            self._graphs.clear()
+            self._pool = None
+            self._screen = screen_buffers(key)
+        out = frame_setup(key, x, screen=self._screen)
+        statics = [t.clone() if _graph_input(t, key.device)
+                   else torch.full((), float(t), dtype=key.dtype,
+                                   device=key.device) for t in x]
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(key.device)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's CUDA calls (the batch renderer's
+        # uploads) neither break the capture nor fail
+        with sampling.fresh_constants(), torch.cuda.stream(self._stream):
+            graph.capture_begin(self._pool, capture_error_mode="thread_local")
+            try:
+                captured = frame_setup(key, statics, screen=self._screen)
+            finally:
+                graph.capture_end()
+        self._graphs[key] = (graph, statics, captured)
+        if len(self._graphs) > SETUP_GRAPHS:
+            self._graphs.popitem(last=False)
+        SETUP_CAPTURES += 1
+        return out
+
+
+# ---------------------------------------------------------------------------
 # the renderer
 # ---------------------------------------------------------------------------
 
 def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
                      macrocells=None, pt_fields=None, row0=None, n_rows=None,
                      sample_box=None, clip_box=None, slice0=None,
-                     n_slices_loc=None, fan_only=False):
+                     n_slices_loc=None, fan_only=False, setup_graphs=None):
     """Render one frame. Returns premultiplied (color (N,3), grad (N,3),
     depth (N,), alpha (N,)) flat screen buffers (finalize with
     `integrator.finalize`).
@@ -394,7 +753,13 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     fan ray's world +z orientation (the bricks' compositing order) and
     `warp(c, g, d, a)` does the deferred warp to the screen. No
     macrocell skipping with a box or a plane range, as in the JAX
-    package."""
+    package.
+
+    `setup_graphs`: a `SetupGraphs` (the Renderer's), which replays the
+    setup (`frame_setup`) as a CUDA graph where it can: on the card,
+    nothing under grad, no surfaces, `pt_fields`, hooks or `fan_only`.
+    Every other frame runs it eagerly, with the same bits."""
+    global SETUP_EAGER
     sw: SwStatic = cfg.sw
     if sw is None:
         raise ValueError("cfg.sw unresolved; call cfg.resolved(scene)")
@@ -413,7 +778,6 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
     axis, sign = sw.axis, sw.sign
     w1, w2 = _perp_axes(axis)
     ortho = camera.kind == ORTHOGRAPHIC
-    opts = dict(dtype=dt, device=dev)
 
     # the slice loop reads a storage-ordered view and walks it backward
     # when sign < 0 (no flipped copy of the volume)
@@ -425,106 +789,41 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         # a control input: no cotangent flows into the majorants
         maj_v = _volume_view(macrocells.majorant.detach().float(), axis,
                              1).contiguous()
-    n_a = grid.shape[0]
-    lo = vol.world_lo
-    hi = vol.world_hi
-    ext = hi - lo
-    smp_lo, smp_hi = (lo, hi) if sample_box is None else sample_box
-    clp_lo, clp_hi = (lo, hi) if clip_box is None else clip_box
-    if slice0 is None:
-        # interior-eye trim: start at the plan's first plane that can
-        # cover any ray interval (a bricked caller passes its own range)
-        s0s = int(sw.slice0_static)
-        slice0 = torch.full((), float(s0s), **opts)
-        if n_slices_loc is None:
-            n_slices_loc = sw.n_slices - s0s
+    if pt_fields is not None:
+        mode = None
+    elif cfg.shading == "none":
+        mode = 0
     else:
-        slice0 = torch.as_tensor(slice0, **opts)
-    n_loc = sw.n_slices if n_slices_loc is None else int(n_slices_loc)
-    e, direction, horizontal, vertical = camera_basis(camera, cfg.width,
-                                                      cfg.height)
-
-    # ---- screen ray-fan coordinates ---------------------------------------
-    u = (torch.arange(cfg.width, **opts) + 0.5) / cfg.width - 0.5
-    nr_loc = cfg.height if n_rows is None else int(n_rows)
-    base_row = 0.0 if row0 is None else float(row0)
-    v = (torch.arange(nr_loc, **opts) + 0.5 + base_row) / cfg.height - 0.5
-    vv, uu = torch.meshgrid(v, u, indexing="ij")  # (H, W)
-    if ortho:
-        p_scr = e[w1] + uu * horizontal[w1] + vv * vertical[w1]
-        q_scr = e[w2] + uu * horizontal[w2] + vv * vertical[w2]
+        mode = 2 if (cfg.shading == "shadow"
+                     and light_grid is not None) else 1
+    lgrid = None
+    if mode == 2:
+        lgrid = _volume_view(light_grid.to(dt), axis, sign).contiguous()
+    key = setup_key(scene, cfg, camera, jitter, mode, grid.shape[0],
+                    0 if lgrid is None else lgrid.shape[0], dev)
+    x = setup_inputs(scene, camera, jitter)
+    if (setup_graphs is not None and mode is not None and not bricked
+            and row0 is None and n_rows is None and n_slices_loc is None
+            and not fan_only and not scene.geometries
+            and setup_graphs.replayable(key, x, src, light_grid)):
+        s = setup_graphs.setup(key, x)
     else:
-        dw = (direction[None, None, :] + uu[..., None] * horizontal
-              + vv[..., None] * vertical)
-        da = dw[..., axis] * sign
-        p_scr = _safe_div(dw[..., w1], da)
-        q_scr = _safe_div(dw[..., w2], da)
-
-    def _rng(x):
-        m = 0.01 * (torch.max(x) - torch.min(x)) + 1e-6
-        return torch.min(x) - m, torch.max(x) + m
-
-    p_lo, p_hi = _rng(p_scr)
-    q_lo, q_hi = _rng(q_scr)
-    hi_i, wi_i = sw.inter_h, sw.inter_w
-    dp = (p_hi - p_lo) / wi_i
-    dq = (q_hi - q_lo) / hi_i
-    pg = p_lo + (torch.arange(wi_i, **opts) + 0.5) * dp
-    qg = q_lo + (torch.arange(hi_i, **opts) + 0.5) * dq
-    if ortho:
-        dlam = 1.0 / torch.clamp(torch.abs(direction[axis]), min=1e-12)
-        inv_da = 1.0 / torch.where(torch.abs(direction[axis]) < 1e-12,
-                                   torch.full_like(direction[axis], 1e-12),
-                                   direction[axis])
-    else:
-        dlam = 1.0
-        inv_da = torch.full((), float(sign), **opts)
-
-    # ---- sample-plane schedule --------------------------------------------
-    dz = ext[axis] / sw.n_slices
-    off = (torch.full((), 0.5, **opts) if jitter is None
-           else torch.as_tensor(jitter, **opts))
-    jj = slice0 + torch.arange(n_loc, **opts)
-    z_rel = (jj + off) * dz
-    z_abs = lo[axis] + z_rel if sign > 0 else hi[axis] - z_rel
-    if ortho:
-        lam = (z_abs - e[axis]) / direction[axis]
-    else:
-        lam = (z_abs - e[axis]) * sign
-    # axial texel mapping through the sample box, traversal coordinates
-    smp0 = ((smp_lo[axis] - lo[axis]) if sign > 0
-            else (hi[axis] - smp_hi[axis]))
-    smp_ext = smp_hi[axis] - smp_lo[axis]
-    c = torch.clamp((z_rel - smp0) / smp_ext * n_a - 0.5, 0.0, n_a - 1.0)
-    k0 = torch.clamp(torch.floor(c).to(torch.int32), 0, n_a - 2)
-    # the clip box's axial interval in ray-parameter units
-    den_a = direction[axis] if ortho else (1.0 / sign)
-    cl_a = (clp_lo[axis] - e[axis]) / den_a
-    cl_b = (clp_hi[axis] - e[axis]) / den_a
-    cla = torch.minimum(cl_a, cl_b)
-    cha = torch.maximum(cl_a, cl_b)
-    lo1, lo2 = smp_lo[w1], smp_lo[w2]
-    ex1, ex2 = smp_hi[w1] - smp_lo[w1], smp_hi[w2] - smp_lo[w2]
-    warp = (cfg, sw, p_scr, q_scr, p_lo, q_lo, dp, dq, pg, u, v, e,
-            direction, horizontal, vertical, axis, w1, w2, sign, ortho)
+        SETUP_EAGER += 1
+        s = frame_setup(key, x, row0=row0, n_rows=n_rows,
+                        sample_box=sample_box, clip_box=clip_box,
+                        slice0=slice0, n_slices_loc=n_slices_loc)
+    pg, qg, e, direction = s["pg"], s["qg"], s["e"], s["direction"]
+    warp = (cfg, sw, s["p_scr"], s["q_scr"], s["p_lo"], s["q_lo"], s["dp"],
+            s["dq"], pg, s["u"], s["v"], e, direction, s["horizontal"],
+            s["vertical"], axis, w1, w2, sign, ortho)
     if pt_fields is not None:
         return _sw_warp_out(*_pt_composite(
-            pt_fields, sw, vol, pg, qg, e, direction, lam, z_rel, dz, dlam,
-            n_loc, axis, sign, ortho), *warp)
+            pt_fields, sw, vol, pg, qg, e, direction, s["lam"], s["z_rel"],
+            s["dz"], s["dlam"], s["n_loc"], axis, sign, ortho), *warp)
 
-    rgba_tab = _common_rgba_table(scene.tfn.color, scene.tfn.alpha)
-    value_range = scene.tfn.value_range
-    base = cfg.base_rate * torch.ones((), **opts)
-    half = 0.5 * dz * dlam
-    clip_scalars = dict(
-        clo1=clp_lo[w1], cex1=clp_hi[w1] - clp_lo[w1], clo2=clp_lo[w2],
-        cex2=clp_hi[w2] - clp_lo[w2], cla=cla, cha=cha,
-        smp0=smp0, smpsc=n_a / smp_ext,
-        glo1=lo[w1], gex1=ext[w1], glo2=lo[w2], gex2=ext[w2],
-        za0=lo[axis] if sign > 0 else hi[axis], zsg=float(sign))
-    zdt = torch.zeros((), **opts)
     exit_map = bg = None
     if scene.geometries:
+        hi_i, wi_i = sw.inter_h, sw.inter_w
         ovec, dvec, speed = _fan_rays(pg, qg, e, direction, axis, sign,
                                       ortho)
         bg_rgb, bg_a, t_bg = geometry.render_geometries(
@@ -533,50 +832,12 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         bg = (bg_rgb.reshape(hi_i, wi_i, 3), bg_a.reshape(hi_i, wi_i),
               t_bg.reshape(hi_i, wi_i), speed)
         exit_map = torch.where(bg[1] > 0, bg[2], geometry.BIG)
-    common = dict(
-        lo1=lo1, ex1=ex1, lo2=lo2, ex2=ex2, e1=e[w1], e2=e[w2],
-        dw1=direction[w1] if ortho else zdt,
-        dw2=direction[w2] if ortho else zdt,
-        half=half, dz=dz, off=off + slice0, vr=value_range, base=base,
-        lam0=lam[0] - (off + slice0) * dz * dlam, n_a=n_a, dlam=dlam,
-        exa=ext[axis], ortho=ortho, **clip_scalars)
-
-    if cfg.shading == "none":
-        sc = _kernel_scalars(dt, dev, **common)
-        trace.stage("k1", dev)
-        out8 = swslice.slice_composite(
-            grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=0, majorant_v=maj_v,
-            term=sw.term, fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0,
-            exit_map=exit_map)
-    else:
-        # ---- shaded (diffuse/shadow) path ---------------------------------
-        light_dir = safe_normalize(scene.light.direction)
-        wtc = torch.stack([safe_normalize(horizontal),
-                           safe_normalize(vertical), -direction])
-        wtcp = torch.stack([wtc[:, w1], wtc[:, w2], wtc[:, axis]], dim=1)
-        mode = 2 if (cfg.shading == "shadow"
-                     and light_grid is not None) else 1
-        lights, n_dir = _extra_lights_fan(scene, w1, w2, axis, dt)
-        lgrid = k0l = None
-        n_la = 2.0
-        if mode == 2:
-            lgrid = _volume_view(light_grid.to(dt), axis, sign).contiguous()
-            l_a = lgrid.shape[0]
-            cl = torch.clamp(z_rel / ext[axis] * l_a - 0.5, 0.0, l_a - 1.0)
-            k0l = torch.clamp(torch.floor(cl).to(torch.int32), 0,
-                              max(l_a - 2, 0))
-            n_la = float(l_a)
-        sc = _kernel_scalars(
-            dt, dev, ld=(light_dir[w1], light_dir[w2], light_dir[axis]),
-            k1o=direction[w1] if ortho else zdt,
-            k2o=direction[w2] if ortho else zdt, inv_da=inv_da,
-            dzdlam=dz * dlam, n_la=n_la, wtcp=wtcp, **common)
-        trace.stage("k1", dev)
-        out8 = swslice.slice_composite(
-            grid, rgba_tab, sc, pg, qg, k0, n_loc, mode=mode, lgrid=lgrid,
-            k0l=k0l, lights=lights, n_dir=n_dir, majorant_v=maj_v,
-            term=sw.term, fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0,
-            exit_map=exit_map)
+    trace.stage("k1", dev)
+    out8 = swslice.slice_composite(
+        grid, s["rgba_tab"], s["sc"], pg, qg, s["k0"], s["n_loc"],
+        mode=mode, lgrid=lgrid, k0l=s["k0l"], lights=s["lights"],
+        n_dir=key.n_dir if mode else 0, majorant_v=maj_v, term=sw.term,
+        fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0, exit_map=exit_map)
     trace.stage("warp", dev)
     color = out8[0:3].permute(1, 2, 0)
     grad = out8[3:6].permute(1, 2, 0)

@@ -25,7 +25,7 @@ from chip_smoke import (HOOK_CASES, MARCH_CASES, PlainCalls,
 from ovr_tpu_torch import api
 from ovr_tpu_torch.core.scene import Camera, Light, simple_scene
 from ovr_tpu_torch.ops import adjoint, swslice
-from ovr_tpu_torch.render import accel, ptdense
+from ovr_tpu_torch.render import accel, ptdense, shearwarp
 
 
 def _field(n, kind):
@@ -854,6 +854,194 @@ def test_shearwarp_frame_never_waits_for_the_card(shading):
             torch.cuda.set_sync_debug_mode(0)
     assert swslice.LAUNCHES == before + 1
     assert torch.isfinite(frame.rgba).all()
+    # a Renderer's frame that captures its setup, then one that replays
+    # it: another view of the plan
+    cam = Camera.create(from_=(0.55, 0.42, -1.5), at=(0.5, 0.5, 0.5),
+                        fovy=40.0, device="cuda")
+    cfg2 = dataclasses.replace(cfg, sw=None).resolved(scene, cam)
+    graphs = shearwarp.SetupGraphs()
+    frames = []
+    with torch.no_grad():
+        before = (swslice.LAUNCHES, shearwarp.SETUP_CAPTURES,
+                  shearwarp.SETUP_REPLAYS)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for c, kw in ((cfg, {}), (cfg2, dict(camera=cam))):
+                frames.append(api.render(scene, c, macrocells=mc,
+                                         light_grid=lg, _setup_graphs=graphs,
+                                         **kw))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert (swslice.LAUNCHES, shearwarp.SETUP_CAPTURES,
+            shearwarp.SETUP_REPLAYS) == (before[0] + 2, before[1] + 1,
+                                         before[2] + 1)
+    assert torch.equal(frames[0].rgba, frame.rgba)
+    want = api.render(scene, cfg2, camera=cam, macrocells=mc, light_grid=lg)
+    assert torch.equal(frames[1].rgba, want.rgba)
+
+
+def _orbit_eye(deg, r=1.9):
+    th = np.radians(deg)
+    return (0.5 + r * np.sin(th), 0.5, 0.5 - r * np.cos(th))
+
+
+def _plan_of(cfg):
+    sw = cfg.sw
+    return (sw.axis, sw.sign, sw.n_slices, sw.slice0_static, sw.inter_h,
+            sw.inter_w)
+
+
+# (grid, shading, traffic, spp, TF, camera and lights): an orbit through
+# all four plans of axis and sign, its exactly axis-aligned views among
+# them; a TF ramp at a fixed eye (with a 32-node alpha table, so the
+# setup renodes the colours by a matrix product); shadow with its
+# lattice; two samples a pixel; an orthographic orbit; two directional
+# lights and a point light besides the headlight
+REPLAY_CASES = [("u16", "diffuse", "orbit", 1, "smooth", "persp"),
+                ("f32", "shadow", "orbit", 1, "smooth", "persp"),
+                ("u8", "diffuse", "orbit", 2, "smooth", "persp"),
+                ("f32", "diffuse", "tf-edit", 1, "sparse", "persp"),
+                ("u16", "none", "orbit", 1, "smooth", "persp"),
+                ("u8", "diffuse", "orbit", 1, "smooth", "ortho"),
+                ("f32", "shadow", "orbit", 1, "smooth", "lights")]
+ORBIT = [0, 30, 45, 90, 120, 180, 200, 270, 300, 360, 15, 90, 135]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shading,traffic,spp,kind,view",
+                         REPLAY_CASES)
+def test_renderer_replayed_setup_is_the_eager_frame(dtype, shading, traffic,
+                                                     spp, kind, view):
+    """Each Renderer frame equals `api.render` (eager setup) on the same
+    scene, config, camera, macrocells and lattice, bit for bit. The first
+    frame of each plan captures its setup and every later one replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_lights = 2 if view == "lights" else 0
+    scene = _scene(kind, dtype, n=64, device="cuda", n_lights=n_lights,
+                   n_points=n_lights // 2)
+    lens = (dict(height=1.3, kind="orthographic") if view == "ortho"
+            else dict(fovy=40.0))
+    scene = dataclasses.replace(scene, camera=Camera.create(
+        from_=_orbit_eye(0), at=(0.5, 0.5, 0.5), device="cuda", **lens))
+    r = api.Renderer(scene, api.RenderConfig(
+        width=160, height=96, sampling_rate=64.0, method="auto",
+        shading=shading, spp=spp, use_macrocells=True))
+    color = scene.tfn.color.cpu().numpy()
+    alpha = scene.tfn.alpha.cpu().numpy()
+    steps = (ORBIT if traffic == "orbit"
+             else [0.1 * i for i in range(6)] + [0.2, 0.0])
+    plans, got = set(), np.zeros(3, np.int64)
+    for step in steps:
+        if traffic == "orbit":
+            r.set_camera(from_=_orbit_eye(step), at=(0.5, 0.5, 0.5))
+        else:
+            x = np.linspace(0.0, 1.0, len(alpha))
+            r.set_transfer_function(
+                color, np.clip((x - step) / (1.0 - step), 0.0, 1.0)
+                * alpha.max(), scene.tfn.value_range.cpu().numpy())
+        r.commit()
+        c0 = np.array([shearwarp.SETUP_REPLAYS, shearwarp.SETUP_CAPTURES,
+                       shearwarp.SETUP_EAGER])
+        r.render()
+        got += np.array([shearwarp.SETUP_REPLAYS, shearwarp.SETUP_CAPTURES,
+                         shearwarp.SETUP_EAGER]) - c0
+        plans.add(_plan_of(r._cfg))
+        with torch.no_grad():
+            want = api.render(r.scene, r._cfg, camera=r._camera,
+                              frame_index=r._frame_index,
+                              macrocells=r._macrocells,
+                              light_grid=r._light_grid)
+        for a, b in ((r._frame.rgba, want.rgba), (r._frame.grad, want.grad),
+                     (r._frame.depth, want.depth)):
+            assert torch.equal(a, b), step
+    if traffic == "orbit":
+        assert {p[:2] for p in plans} == {(0, 1), (0, -1), (2, 1), (2, -1)}
+    assert tuple(got) == (len(steps) * spp - len(plans), len(plans), 0)
+
+
+@pytest.mark.cuda
+def test_renderer_captures_again_after_a_new_frame_size():
+    """A new frame size drops every graph of the Renderer with its screen
+    buffers; the next frames capture and replay in a new memory pool,
+    each equal to `api.render`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _scene("smooth", "u16", n=64, device="cuda")
+    r = api.Renderer(scene, api.RenderConfig(
+        width=160, height=96, sampling_rate=64.0, method="auto",
+        shading="diffuse", use_macrocells=True))
+    c0 = np.array([shearwarp.SETUP_REPLAYS, shearwarp.SETUP_CAPTURES])
+    for size in ((160, 96), (160, 96), (128, 80), (128, 80), (160, 96)):
+        if (r._cfg.width, r._cfg.height) != size:
+            r.set_fbsize(size)
+        r.commit()
+        r.render()
+        with torch.no_grad():
+            want = api.render(r.scene, r._cfg, camera=r._camera,
+                              frame_index=r._frame_index,
+                              macrocells=r._macrocells)
+        assert torch.equal(r._frame.rgba, want.rgba), size
+    assert tuple(np.array([shearwarp.SETUP_REPLAYS,
+                           shearwarp.SETUP_CAPTURES]) - c0) == (2, 3)
+
+
+def _pool_bytes(graphs):
+    """The reserved and allocated bytes of each segment of the graphs'
+    memory pool."""
+    pool = tuple(graphs._pool)
+    return [(g["total_size"], g["allocated_size"])
+            for g in torch.cuda.memory_snapshot()
+            if tuple(g["segment_pool_id"]) == pool]
+
+
+@pytest.mark.cuda
+def test_renderer_setup_graphs_add_no_memory():
+    """The peak of an eight-view orbit through the Renderer (captures
+    included) is within 1% of the same views' eager frames, beside the
+    shared denominator and mask (`shearwarp.screen_buffers`), counted
+    apart. The graphs' pool, whose free blocks `max_memory_allocated`
+    does not see, holds no screen-sized block: its segments are the
+    allocator's small ones, 4 MiB at most."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _scene("smooth", "u16", n=128, device="cuda")
+    cfg = api.RenderConfig(width=960, height=540, sampling_rate=128.0,
+                           method="auto", shading="diffuse",
+                           use_macrocells=True)
+    small = 2 << 20
+
+    def peak(replay):
+        r = api.Renderer(scene, cfg)
+        r.commit()
+        last = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            for deg in range(0, 360, 45):
+                r.set_camera(from_=_orbit_eye(deg), at=(0.5, 0.5, 0.5))
+                r.commit()
+                if replay:
+                    r.render()
+                else:
+                    last = api.render(r.scene, r._cfg, camera=r._camera,
+                                      macrocells=r._macrocells)
+        torch.cuda.synchronize()
+        segs = _pool_bytes(r._setup_graphs) if replay else []
+        shared = (sum(b.nbytes for b in r._setup_graphs._screen[2:])
+                  if replay else 0)
+        del r, last
+        return torch.cuda.max_memory_allocated(), shared, segs
+
+    eager, _, _ = peak(False)
+    c0 = shearwarp.SETUP_CAPTURES
+    graphed, shared, segs = peak(True)
+    assert shearwarp.SETUP_CAPTURES - c0 == 4
+    assert segs and all(total <= small for total, _ in segs), segs
+    free = sum(total - used for total, used in segs)
+    assert sum(total for total, _ in segs) <= 2 * small, segs
+    assert abs(graphed - shared - eager) <= 0.01 * eager, (
+        graphed, shared, eager, free)
 
 
 def _plain_windows(v, dim, reduce, neutral):

@@ -43,8 +43,9 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 NEW = {"plan_ms", "value_ranges_ms", "majorants_ms", "frame_setup_ms",
        "warp_ms", "issue_ms", "readback_mb", "readback_gb_per_s",
-       "setter_stall_ms", "readback_pinned_pct"}
-HOST_READERS = {"plan_ms", "issue_ms", "readback_mb", "readback_pinned_pct"}
+       "setter_stall_ms", "readback_pinned_pct", "setup_graph_pct"}
+HOST_READERS = {"plan_ms", "issue_ms", "readback_mb", "readback_pinned_pct",
+                "setup_graph_pct"}
 TINY = {"dims_xyz": [20, 18, 22],
         "render": {"width": 48, "height": 32, "sampling_rate": 24.0}}
 SEED = 3_000_000_019
@@ -187,9 +188,12 @@ def test_readback_bytes_are_the_arrays_bytes():
         assert by[f"mapframe.{k}"].counts == {
             "api.READBACK_BYTES": out[k].nbytes}
     assert api.READBACK_BYTES - before == total
-    # nothing else moved a counter on the CPU: the plain slice loop
-    assert all(not s.counts for s in trace.spans()
-               if not s.name.startswith("mapframe"))
+    # nothing else moved a counter on the CPU but the setup's eager run:
+    # the plain slice loop launches nothing
+    eager = {"shearwarp.SETUP_EAGER": 1}
+    assert all(s.counts == (eager if s.name in ("render", "render.setup")
+                            else {})
+               for s in trace.spans() if not s.name.startswith("mapframe"))
 
 
 def test_march_frame_counts_its_steps():
@@ -208,7 +212,8 @@ def test_counters_registered_by_name(monkeypatch):
     for name in ("swslice.LAUNCHES", "swslice.LAUNCHES_BF16",
                  "integrator.STEPS", "api.READBACK_BYTES",
                  "api.READBACK_PINNED_BYTES", "api.READBACK_PINNED_ALLOCS",
-                 "accel.VALUE_RANGE_SLABS"):
+                 "accel.VALUE_RANGE_SLABS", "shearwarp.SETUP_REPLAYS",
+                 "shearwarp.SETUP_CAPTURES", "shearwarp.SETUP_EAGER"):
         assert name in trace.counters()
     with profile():
         with trace.span("outer"):
@@ -367,7 +372,8 @@ def test_readers_on_a_made_up_traced_frame(monkeypatch):
     rows = [("set_camera", 0, 0.1, 0.9, 0.2, 0.9, {}),
             ("commit", 0, 1.1, 1.9, 1.2, 1.9, {}),
             ("commit.plan", 2, 1.2, 1.8, 1.3, 1.8, {}),
-            ("render", 0, 2.1, 6.9, 2.2, 6.9, {}),
+            ("render", 0, 2.1, 6.9, 2.2, 6.9,
+             {"shearwarp.SETUP_REPLAYS": 3, "shearwarp.SETUP_EAGER": 1}),
             ("render.setup", 4, 2.1, 3.0, 2.2, 3.0, {}),
             ("render.k1", 4, 3.0, 5.0, 3.0, 5.0, {}),
             ("render.warp", 4, 5.0, 6.0, 5.0, 6.0, {}),
@@ -389,7 +395,8 @@ def test_readers_on_a_made_up_traced_frame(monkeypatch):
     want = {"plan_ms": 0.6, "frame_setup_ms": 0.2, "warp_ms": 0.5,
             "issue_ms": 3.9, "readback_mb": 3.0, "readback_gb_per_s": 2.0,
             "setter_stall_ms": 0.75, "value_ranges_ms": 0.0,
-            "majorants_ms": 0.0, "readback_pinned_pct": 50.0}
+            "majorants_ms": 0.0, "readback_pinned_pct": 50.0,
+            "setup_graph_pct": 75.0}
     for name, v in want.items():
         got = run.load_module(ROOT, f"ovrbench/metrics/{name}.py").read(run_)
         assert got == pytest.approx(v, abs=1e-6), name
@@ -400,11 +407,13 @@ def test_readers_on_a_made_up_traced_frame(monkeypatch):
     assert sum(p.idle.values()) == pytest.approx(
         (td.window_s - td.busy_s) * 1e9)
     assert p.idle[program_spans.NO_SPAN] == pytest.approx(0.8 * ms)
-    # a program that registers no pinned counter (an older one) reads None
+    # a program that registers no pinned or setup counter (an older one)
+    # reads None
     monkeypatch.setitem(sys.modules, program_spans.MODULE,
                         types.SimpleNamespace(spans=lambda: spans))
-    assert run.load_module(ROOT, "ovrbench/metrics/readback_pinned_pct.py"
-                           ).read(run_) is None
+    for name in ("readback_pinned_pct", "setup_graph_pct"):
+        assert run.load_module(ROOT, f"ovrbench/metrics/{name}.py"
+                               ).read(run_) is None
 
 
 def test_a_program_without_spans_reads_none(monkeypatch):
@@ -490,8 +499,9 @@ def test_cell_host_readers_finite(cpu_runs, name):
     assert not (set(res["metrics"]) & (mine - HOST_READERS))
     assert res["metrics"]["readback_mb"]["value"] == pytest.approx(
         FRAME_BYTES / 1e6)
-    # frames on the host take no page-locked buffer
+    # frames on the host take no page-locked buffer, and replay no graph
     assert res["metrics"]["readback_pinned_pct"]["value"] == 0.0
+    assert res["metrics"]["setup_graph_pct"]["value"] == 0.0
     assert res["metrics"]["issue_ms"]["value"] > 0
 
 
@@ -548,6 +558,19 @@ def test_card_readback_lands_in_page_locked_buffers(card_runs):
     p = program_spans.placed(run_)
     assert p.count("mapframe", "api.READBACK_PINNED_BYTES") == p.count(
         "mapframe", program_spans.READBACK) > 0
+    assert res["correct"]
+
+
+@pytest.mark.cuda
+def test_card_setup_replays_in_every_traced_frame(card_runs):
+    """Set-up's views capture every plan of the orbit, so each traced
+    frame replays its setup, whose kernels the profiler puts down to
+    `render.setup`."""
+    res, run_ = card_runs[True]
+    assert res["metrics"]["setup_graph_pct"]["value"] == 100.0
+    p = program_spans.placed(run_)
+    assert p.count("render", "shearwarp.SETUP_REPLAYS") == run_.trace.n_frames
+    assert p.device_ms({"render.setup"}, ("kernel",)) > 0
     assert res["correct"]
 
 
