@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit);
-2. builds csrc/swslice.cu with nvcc and prints, per kernel variant (the
-   f32 function and its bf16 variant, each with and without the light
-   table), the registers and spills ptxas reports;
+2. builds csrc/swslice.cu with nvcc, into its timed and its counting
+   library at once, and prints, per kernel variant (the f32 function and
+   its bf16 variant, each with and without the light table, on slab
+   windows or staged runs), the registers and spills ptxas reports;
 3. holds the slice kernel against its plain PyTorch version on the card
    for modes 0/1/2, both gradient stencils, skipping and termination on
    and off, f32/bf16/u8/u16 grids, perspective, orthographic and
@@ -14,12 +15,13 @@
    256^3 frame at 64x36 with fans so coarse that the tiles' footprints
    exceed the slab windows), with light tables of directional and point
    lights, and in the bf16 variant (f32 grids read as bf16 or, at 60
-   rows, as f32; bf16, u8 and u16 grids; staged windows and direct
-   taps); in each case it also runs the kernel's counting variant, which
-   must give the same bits, and holds the planes per block and the
-   samples each pixel needs against the plain version's counts, and the
-   planes sampled from staged slab windows or straight from the grid
-   against the path the case must take;
+   rows, as f32; bf16, u8 and u16 grids; staged windows, staged runs and
+   direct taps); in each case it also runs the kernel's counting
+   variant, which must give the same bits, and holds the planes per
+   block and the samples each pixel needs against the plain version's
+   counts, and the planes sampled from staged slab windows, straight
+   from the grid or from staged runs against the path the case must
+   take;
 4. renders the headline frame through `api.render`: a 1024^3 bf16 volume
    (bench.py's synthetic field, built on the card), 1920x1080, 1024
    planes, macrocell skipping on, in diffuse, none and shadow shading and
@@ -374,16 +376,17 @@ def storage(grid):
 
 
 def ptxas_summary(text):
-    """{(dtype, mode, fd, counting, bf16, lights): (registers, spill store
-    bytes, spill load bytes)} of each kernel variant, from `nvcc -Xptxas
-    -v`."""
+    """{(dtype, mode, fd, counting, bf16, lights, runs): (registers, spill
+    store bytes, spill load bytes)} of each kernel variant, from `nvcc
+    -Xptxas -v` (runs False for a kernel without the run variants)."""
     out, key, spills = {}, None, (0, 0)
     for line in text.splitlines():
         m = re.search(r"Function properties for _Z14swslice_kernelI(\w+?)"
-                      r"Li(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+                      r"Li(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?",
+                      line)
         if m:
             key = (PTX_TYPES.get(m.group(1), m.group(1)), int(m.group(2)),
-                   *(bool(int(m.group(i))) for i in (3, 4, 5, 6)))
+                   *(bool(int(m.group(i) or 0)) for i in (3, 4, 5, 6, 7)))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -395,23 +398,38 @@ def ptxas_summary(text):
     return out
 
 
+COUNTING = ("SWSLICE_COUNTING=1",)  # the counting variants' library
+
+
 def build_kernel():
+    """Build the kernel's two libraries, the timed variants and the
+    counting ones, at once (two nvcc processes share the host's cores);
+    returns the ptxas summary of both and the seconds of each build."""
+    from concurrent.futures import ThreadPoolExecutor
     from ovr_tpu_torch.ops import cuda_build
-    built = cuda_build.load("swslice")
-    regs = ptxas_summary(built.log)
-    log(f"swslice build: {built.seconds:.1f} s -> {built.path.name}, "
-        f"{len(regs)} kernel variants (ptxas: registers per thread, spill "
-        f"store/load bytes):")
-    for (dt, mode, fd, cnt, b16, lt), (r, st, ld) in sorted(regs.items()):
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(lambda d: cuda_build.load("swslice", d),
+                              ((), COUNTING)))
+    regs = {}
+    for b in built:
+        regs.update(ptxas_summary(b.log))
+    log(f"swslice build: {built[0].seconds:.1f} s -> {built[0].path.name} "
+        f"(timed), {built[1].seconds:.1f} s -> {built[1].path.name} "
+        f"(counting), {len(regs)} kernel variants (ptxas: registers per "
+        f"thread, spill store/load bytes):")
+    for (dt, mode, fd, cnt, b16, lt, runs), (r, st, ld) in sorted(
+            regs.items()):
         log(f"  {dt:4s} mode {mode} fd={fd:d}{' bf16' if b16 else ''}"
-            f"{' lights' if lt else ''}{' counting' if cnt else ''}: "
-            f"{r} registers, spills {st}/{ld} B")
+            f"{' lights' if lt else ''}{' counting' if cnt else ''}"
+            f"{' runs' if runs else ''}: {r} registers, spills {st}/{ld} B")
     # 4 storage types x (f32, bf16) x (timed, counting) x (mode 0, and
     # modes 1/2 with either gradient, with and without the light table)
-    if len(regs) != 144:
-        raise SystemExit(f"expected 144 kernel variants in the ptxas log, "
-                         f"found {len(regs)}")
-    return regs
+    # x (slab windows or direct taps, staged runs), the timed and the
+    # counting variants each in their own library
+    if len(regs) != 288 or sum(k[3] for k in regs) != 144:
+        raise SystemExit(f"expected 288 kernel variants in the ptxas logs, "
+                         f"144 of them counting, found {len(regs)}")
+    return regs, [b.seconds for b in built]
 
 
 def counts(args):
@@ -428,12 +446,13 @@ def counts(args):
 
 def counted(args, kw, out):
     """The kernel's counting variant on the same inputs: its counts and
-    its planes sampled from staged windows / from the grid. Exits unless
-    it gives the same bits as `out`, the timed variant's result."""
+    its planes sampled from staged windows / from the grid / from staged
+    runs. Exits unless it gives the same bits as `out`, the timed
+    variant's result."""
     import torch
     from ovr_tpu_torch.ops import swslice
     cnt = counts(args)
-    stages = torch.zeros(2, dtype=torch.int32, device=args[0].device)
+    stages = torch.zeros(3, dtype=torch.int32, device=args[0].device)
     out_c = swslice.slice_composite(*args, **dict(kw, **cnt),
                                     stage_counts=stages)
     if not torch.equal(out_c, out):
@@ -443,9 +462,10 @@ def counted(args, kw, out):
 
 # Kernel-vs-plain cases: (n, dtype, kind, shading, fd, skip, term, cam,
 # width, height, (extra directional lights, point lights), bf16) and the
-# path the kernel must take: slab windows staged in shared memory, taps
-# read straight from the grid (strided fan columns), or some of each
-# (tile footprints larger than the windows). "f32r60" is the f32 grid cut
+# path the kernel must take: slab windows staged in shared memory, runs
+# along the traversal staged there (principal-x views), taps read
+# straight from the grid (a principal-x view of a grid off the run
+# alignment), or some of each (tile footprints larger than the windows). "f32r60" is the f32 grid cut
 # to 60 rows along the view's rows, which the bf16 variant reads as f32
 # (not a multiple of 16); an f32 grid of 64 or 256 rows is read as bf16.
 PARITY_CASES = [
@@ -470,6 +490,11 @@ PARITY_CASES = [
     (256, "f32", "sparse", "none", True, True, True, "back", 480, 270,
      (0, 0), False, "staged"),
     (256, "bf16", "bench", "diffuse", True, True, True, "side", 480, 270,
+     (0, 0), False, "runs"),
+    # the same view on the grid copied one voxel off the storage's run
+    # alignment (`off_aligned`): no run can be staged, so every tap is
+    # read from the grid
+    (256, "bf16", "bench", "diffuse", True, True, True, "side", 480, 270,
      (0, 0), False, "direct"),
     (256, "f32", "bench", "shadow", True, True, True, "persp", 64, 36,
      (0, 0), False, "some direct"),
@@ -485,7 +510,7 @@ PARITY_CASES = [
     (64, "u8", "bench", "shadow", False, False, False, "persp", 160, 90,
      (1, 2), False, "staged"),
     (256, "bf16", "bench", "shadow", True, True, True, "side", 480, 270,
-     (2, 1), False, "direct"),
+     (2, 1), False, "runs"),
     # the bf16 variant
     (64, "f32", "bench", "diffuse", True, False, False, "persp", 240, 135,
      (0, 0), True, "staged"),
@@ -502,7 +527,7 @@ PARITY_CASES = [
     (256, "u8", "opaque", "diffuse", False, False, True, "ortho", 480, 270,
      (0, 0), True, "staged"),
     (256, "bf16", "bench", "diffuse", True, True, True, "side", 480, 270,
-     (0, 0), True, "direct"),
+     (0, 0), True, "runs"),
     (256, "f32", "bench", "shadow", True, True, True, "persp", 64, 36,
      (1, 1), True, "some direct"),
     # 16-bit storage: each mode, a light table, direct and some direct
@@ -516,7 +541,7 @@ PARITY_CASES = [
     (64, "u16", "bench", "shadow", True, False, False, "persp", 160, 90,
      (2, 1), False, "staged"),
     (256, "u16", "bench", "diffuse", True, True, True, "side", 480, 270,
-     (0, 0), False, "direct"),
+     (0, 0), False, "runs"),
     (256, "u16", "bench", "shadow", True, True, True, "persp", 64, 36,
      (0, 0), False, "some direct"),
     (64, "u16", "bench", "diffuse", True, False, False, "persp", 240, 135,
@@ -549,6 +574,19 @@ EXIT_CASES = [
 ]
 
 
+def off_aligned(gv):
+    """A copy of `gv`, a principal-x view walked forward (unit traversal
+    stride), in storage one voxel off the kernel's run alignment: the
+    same values, and no run of it can be staged."""
+    import torch
+    if gv.stride(0) != 1:
+        raise SystemExit(f"off_aligned: traversal stride {gv.stride(0)}")
+    pad = torch.zeros((*gv.shape[1:], gv.shape[0] + 1), dtype=gv.dtype,
+                      device=gv.device)
+    pad[..., 1:] = gv.permute(1, 2, 0)
+    return pad[..., 1:].permute(2, 0, 1)
+
+
 def parity(grids, cases=PARITY_CASES, surfaces=False):
     """Kernel vs plain on the card; returns the largest error seen over
     all cases and over the bf16 variant's cases. `surfaces`: each scene
@@ -575,36 +613,55 @@ def parity(grids, cases=PARITY_CASES, surfaces=False):
         mc = (accel.build_macrocells(grid, scene.tfn.alpha,
                                      scene.tfn.value_range) if skip else None)
         args, kw = capture(scene, cfg, macrocells=mc)
+        if path == "direct":
+            if kw["axial_flip"]:
+                raise SystemExit("the off-aligned case needs a forward view")
+            args = (off_aligned(args[0]), *args[1:])
         name = (f"{n}^3 {dt} {kind} {shading} {cam} {w}x{h}"
-                f"{' bf16' if bf16 else ''}{' exit map' if surfaces else ''}")
+                f"{' bf16' if bf16 else ''}{' exit map' if surfaces else ''}"
+                f"{' off-aligned' if path == 'direct' else ''}")
         ex = kw.get("exit_map")
         clamped = 0 if ex is None else int((ex < 1e38).sum())
         if surfaces != (clamped > 0):
             raise SystemExit(f"{name}: the exit map clamps {clamped} fan "
                              f"rays")
         n0, b0 = swslice.LAUNCHES, swslice.LAUNCHES_BF16
+        r0, d0 = swslice.LAUNCHES_RUNS, swslice.LAUNCHES_DIRECT
         out = swslice.slice_composite(*args, **kw)
         torch.cuda.synchronize()
         if (swslice.LAUNCHES, swslice.LAUNCHES_BF16) != (n0 + 1, b0 + bf16):
             raise SystemExit("slice_composite did not launch the kernel "
                              "variant")
-        cnt, (staged, direct) = counted(args, kw, out)
+        # the launcher's path, as the wrapper counts it
+        if (swslice.LAUNCHES_RUNS - r0, swslice.LAUNCHES_DIRECT - d0) != (
+                int(path == "runs"), int(path == "direct")):
+            raise SystemExit(f"{name}: the launch was counted on the runs "
+                             f"path {swslice.LAUNCHES_RUNS - r0} and the "
+                             f"direct path {swslice.LAUNCHES_DIRECT - d0} "
+                             f"times (must be {path})")
+        cnt, (staged, direct, runs) = counted(args, kw, out)
         cnt_p = counts(args)
         ref = swslice.slice_composite_plain(*args, **kw, **cnt_p)
         err_c, err_a, err_d, ok = compare(out, ref, term)
         worst[bf16] = max(worst[bf16], err_c, err_a, err_d)
         alpha_max = float(ref[7].max())
         same = all(torch.equal(cnt[k], cnt_p[k]) for k in cnt)
-        path_ok = {"staged": staged > 0, "some direct": direct > 0,
-                   "direct": direct > 0 and staged == 0}[path]
+        # a run-staged view reads the grid only on a plane past a skip
+        # whose two runs find one free buffer
+        path_ok = {"staged": staged > 0 and runs == 0,
+                   "some direct": direct > 0,
+                   "direct": direct > 0 and staged == runs == 0,
+                   "runs": runs > 0 and staged == 0
+                   and direct <= runs // 20}[path]
         n_lt = 0 if kw.get("lights") is None else kw["lights"].shape[0]
         log(f"parity {name} fd={fd:d} skip={skip:d} term={term:d} "
             f"lights={nd}+{npt}: rgb/n {err_c:.2e} alpha {err_a:.2e} depth "
             f"{err_d:.2e} (max alpha {alpha_max:.3f}); planes per block and "
             f"samples per pixel {'equal' if same else 'DIFFER'} "
             f"({int(cnt['pixel_samples'].sum())} samples); planes sampled "
-            f"from staged windows {staged}, from the grid {direct} (must be "
-            f"{path}){f'; {clamped} fan rays clamped' if surfaces else ''} "
+            f"from staged windows {staged}, from the grid {direct}, from "
+            f"staged runs {runs} (must be {path})"
+            f"{f'; {clamped} fan rays clamped' if surfaces else ''} "
             f"{'ok' if ok and same and path_ok else 'FAIL'}")
         if (not ok or not same or not path_ok or alpha_max < 0.05
                 or n_lt != (nd + npt if shading != "none" else 0)):
@@ -743,7 +800,7 @@ def kernel_alone(results, mc, card, regs):
                            light_grid=r["lg"])
         hi, wi = args[4].shape[0], args[3].shape[0]
         full = swslice.slice_composite(*args, **kw)
-        cnt, (staged, direct) = counted(args, kw, full)
+        cnt, (staged, direct, runs) = counted(args, kw, full)
         r["kernel_ms"] = cuda_ms(
             lambda: swslice.slice_composite(*args, **kw), 5)
         (r["bound_ms"], r["bound_by"], r["samples"], r["bytes"],
@@ -753,24 +810,28 @@ def kernel_alone(results, mc, card, regs):
         r["planes"] = args[6]
         r["block_planes"] = int(cnt["block_planes"].sum())
         r["planes_staged"], r["planes_direct"] = staged, direct
+        r["planes_runs"] = runs
         mode, fd, bf16 = kw["mode"], kw["fd"] and kw["mode"] >= 1, kw["bf16"]
         n_lt = 0 if kw.get("lights") is None else kw["lights"].shape[0]
         occ = swslice.kernel_occupancy(args[0], mode, fd, args[1].shape[0],
                                        args[6], axial_flip=kw["axial_flip"],
-                                       bf16=bf16, n_lights=n_lt)
+                                       bf16=bf16, n_lights=n_lt,
+                                       run_footprint=kw["run_footprint"])
         st = storage(args[0])
-        reg = regs[(st, mode, fd, False, bf16, n_lt > 0)]
+        reg = regs[(st, mode, fd, False, bf16, n_lt > 0,
+                    occ["path"] == "runs")]
         r.update(occ, registers=reg[0], spill_bytes=reg[1] + reg[2],
                  lights=n_lt, storage=st)
         variant = (f"{st} storage mode {mode} fd={fd:d}"
                    f"{' bf16' if bf16 else ''}"
-                   f"{f' lights ({n_lt})' if n_lt else ''}")
+                   f"{f' lights ({n_lt})' if n_lt else ''}, {occ['path']}")
         log(f"kernel {label}: {variant} variant, "
             f"{reg[0]} registers, spills {reg[1]}/{reg[2]} B (ptxas); "
             f"{occ['threads']} threads, {occ['smem_bytes']} B dynamic "
             f"shared memory, {occ['blocks_per_sm']} blocks/SM (CUDA "
             f"occupancy API); planes sampled from staged windows {staged}, "
-            f"from the grid {direct}; planes composited {r['block_planes']}")
+            f"from the grid {direct}, from staged runs {runs}; planes "
+            f"composited {r['block_planes']}")
         band_check(label, r, args, kw, full)
         mrays = 1920 * 1080 / (r["frame_ms"] * 1e-3) / 1e6
         log(f"headline {label:14s} 1920x1080 1024^3 {st} storage: frame "
@@ -2678,7 +2739,7 @@ def neural_kernel(label, scene, cfg, lg, full_frame_ms):
     from ovr_tpu_torch.ops import swslice
     args, kw = capture(scene, cfg, light_grid=lg)
     full = swslice.slice_composite(*args, **kw)
-    cnt, (staged, direct) = counted(args, kw, full)
+    cnt, (staged, direct, runs) = counted(args, kw, full)
     r = dict(frame_ms=full_frame_ms)
     r["kernel_ms"] = cuda_ms(lambda: swslice.slice_composite(*args, **kw), 5)
     (r["bound_ms"], r["bound_by"], r["samples"], r["bytes"],
@@ -2687,6 +2748,7 @@ def neural_kernel(label, scene, cfg, lg, full_frame_ms):
     r["fan"] = (args[4].shape[0], args[3].shape[0])
     r["planes"] = args[6]
     r["planes_staged"], r["planes_direct"] = staged, direct
+    r["planes_runs"] = runs
     band_check(label, r, args, kw, full)
     return r
 
@@ -4325,8 +4387,8 @@ def main() -> int:
         builder.join()
     if "error" in built:
         raise built["error"]
-    regs = built["regs"]
-    phases["nvcc, beside them"] = cuda_build.load("swslice").seconds
+    regs, nvcc_s = built["regs"]
+    phases["nvcc, beside them"] = max(nvcc_s)
     log(f"build and the phases beside it: "
         f"{time.perf_counter() - t_build:.1f} s (nvcc "
         f"{phases['nvcc, beside them']:.1f} s)")
@@ -4519,7 +4581,8 @@ def main() -> int:
             "samples", "ops_per_sample", "share_of_bound", "band_plain_ms",
             "band_kernel_ms", "band_err", "peak_bytes", "registers",
             "spill_bytes", "threads", "smem_bytes", "blocks_per_sm",
-            "planes_staged", "planes_direct", "axis", "lights")
+            "planes_staged", "planes_direct", "planes_runs", "axis",
+            "lights")
     entry = {
         "name": "swslice",
         "route": "cuda",

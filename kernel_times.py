@@ -43,10 +43,11 @@ def main() -> int:
     if not swslice.__file__.startswith(root):
         raise SystemExit(f"imported {swslice.__file__}, not from {root}")
     built = cuda_build.load("swslice")
-    regs = {k[1:3]: v[0] for k, v in cs.ptxas_summary(built.log).items()
-            if k[0] == "bf16" and not k[3]}
+    regs = {(*k[1:3], k[6]): v[0]
+            for k, v in cs.ptxas_summary(built.log).items()
+            if k[0] == "bf16" and not k[3] and not k[5]}
     print(f"{label}: build {built.seconds:.1f} s; bf16 registers by (mode, "
-          f"fd) {regs}", flush=True)
+          f"fd, runs) {regs}", flush=True)
     grid = cs.field(1024, "bench", "cuda").to(torch.bfloat16)
     times = {}
     for label_h, shading, cam in cs.HEADLINES:

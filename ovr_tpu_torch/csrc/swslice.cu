@@ -65,10 +65,34 @@
 // next plane reuses it (slab k0 + 1 becomes the next k0) instead of
 // copying it again. Four slab buffers of CR x CC voxels hold the windows
 // of two stages. A stage whose footprint does not fit them (a fan much
-// coarser than the volume) or whose columns are not contiguous (a view
-// along the volume's fastest axis) reads its taps from the grid instead;
-// the choice is per block and plane, from geometry, the same for every
-// thread. Before the loop the block computes its voxel footprint on
+// coarser than the volume) reads its taps from the grid instead; the
+// choice is per block and plane, from geometry, the same for every
+// thread.
+//
+// Runs (template flag RUNS). A view along the grid's fastest axis (the
+// traversal stride is +-1, the columns strided: principal-x views) has
+// no contiguous window row, but consecutive planes lie next to each other
+// in memory: an aligned run of RB = 8 bytes at one (row, column) holds
+// 2 (f32), 4 (16-bit) or 8 (u8) consecutive planes' voxels. Runs are
+// aligned to the storage, not to the traversal, so a view walked backward
+// stages the same runs. Before the loop every plane's footprint joins, by
+// shared atomics, the footprints of the runs its two slabs lie in; a run
+// buffer holds a run's footprint as [row][column][plane in run]. A stage
+// finds its two slabs' runs among NRB = 3 buffers (a run serves every
+// plane that reads it, and a plane whose slabs straddle two runs reads
+// both) or copies them (one 8-byte cp.async a row and column) into a
+// buffer that the stage being sampled does not read; the copy completes
+// at the plane's barrier, as a slab window's does. A run whose footprint
+// does not fit a buffer, or a plane past a skip whose two runs find only
+// one free buffer, reads its taps from the grid. A block's footprint
+// grows with the voxels per fan pixel (a 1080p fan is coarser than a
+// 1024^2 section: 20 x 57 voxels a plane) and with the view's angle off
+// the axis, so the launcher sizes the buffers from the caller's estimate
+// of the footprints (the plan's, shearwarp._run_footprint): three blocks
+// an SM where nearly all fit, two with larger buffers where half fit,
+// and the direct taps where too few would (near 45 degrees off the
+// axis). Their arithmetic is the slab variant's; only the taps' source
+// differs. Before the loop the block computes its voxel footprint on
 // every plane of the schedule (kept in shared memory for the staging)
 // and tests it against the macrocells: each thread takes planes, one
 // ballot per 32 planes and one barrier for all. The FD halo (the rows
@@ -98,6 +122,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define BR 8   // fan rows per block
 #define BC 32  // fan columns per block
 #define WARPS (BR / 2)  // each thread: two fan rows of one column
@@ -110,6 +136,8 @@
 #define NBUF 4   // slab buffers: two stages of two slabs
 #define CR 24    // voxel rows a slab buffer holds
 #define CC 96    // voxel columns a slab buffer holds
+#define NRB 3    // run buffers: the runs of two stages (head note)
+#define RB 8     // bytes of a run: 2 (f32), 4 (16-bit) or 8 (u8) planes
 
 enum : int {
   S_LO1 = 0, S_EX1, S_LO2, S_EX2, S_EW1, S_EW2, S_DW1, S_DW2, S_HALF, S_DZ,
@@ -147,11 +175,14 @@ struct Params {
   float* out;  // (8, hi, wi)
   int* block_planes;  // per-block count of composited planes, or null
   int* pixel_samples;  // (hi, wi) samples needed per pixel (counting variant)
-  int* stage_counts;  // (2,) planes sampled staged / direct (counting variant)
+  int* stage_counts;  // (3,) planes sampled from slab windows / the grid /
+                      // runs (counting variant)
   int copy_bytes;  // cp.async size for window rows (16, 8, 4), 0: direct only
   int n_words;  // words of per-plane bits: n_slices / 32 + 2
-  int fp_off;  // byte offsets in dynamic shared memory: per-plane windows,
-  int ring_off;  // slab buffers
+  int fp_off;  // byte offsets in dynamic shared memory: per-plane windows
+  int ring_off;  // (per-run footprints), slab (run) buffers
+  int run_cap;  // runs a run buffer holds
+  int n_runs;  // runs along the traversal: na / (RB / element size)
 };
 
 struct bf16_t {
@@ -285,6 +316,25 @@ struct StagedTaps {
   }
 };
 
+// Taps from the staged runs of the two slabs: each run buffer holds, at
+// every (row, column) of its footprint (first voxel (r, c), w columns),
+// the run of consecutive planes there; b0 / b1 point at slab k0's /
+// k0 + 1's plane in the first run of its buffer.
+template <typename T>
+struct RunTaps {
+  const T* b0;
+  const T* b1;
+  int r0, c0, w0, r1, c1, w1;
+  template <bool FMA>
+  __device__ __forceinline__ float v(float gz, float fz, int ir, int ic)
+      const {
+    constexpr int RP = RB / (int)sizeof(T);
+    return zlerp<FMA>(to_float<T>(b0[((ir - r0) * w0 + (ic - c0)) * RP]),
+                     to_float<T>(b1[((ir - r1) * w1 + (ic - c1)) * RP]), gz,
+                     fz);
+  }
+};
+
 // Bilinear sample of the z-lerped plane at (vr, vc), storage scale gs
 // folded into the row weights. GRAD also returns the analytic
 // derivatives along columns (g1) and rows (g2), zero on a node. BF16
@@ -358,15 +408,18 @@ __device__ __forceinline__ Footprint footprint(const float* sc, float lam,
 // Resident blocks per SM that a variant's registers must allow (measured
 // on the H100, PERF.md): five, except the diffuse FD variant, whose
 // direct taps (views along the grid's fastest axis) need the registers of
-// four.
-constexpr int min_blocks(int mode, bool fd) {
-  return mode == 1 && fd ? 4 : 5;
+// four, and the run variants, whose run buffers leave room for three or
+// two blocks anyway.
+constexpr int min_blocks(int mode, bool fd, bool runs = false) {
+  return runs || (mode == 1 && fd) ? 4 : 5;
 }
 
-template <typename T, int MODE, bool FD, bool COUNT, bool BF16, bool LIGHTS>
-__global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
+template <typename T, int MODE, bool FD, bool COUNT, bool BF16, bool LIGHTS,
+          bool RUNS>
+__global__ void __launch_bounds__(NT, min_blocks(MODE, FD, RUNS))
     swslice_kernel(Params P) {
   constexpr int BUF = CR * CC;  // voxels per slab buffer
+  constexpr int RP = RB / (int)sizeof(T);  // planes a run holds
   extern __shared__ __align__(16) unsigned char dyn[];
   float4* tab = reinterpret_cast<float4*>(dyn);  // (n_tab,) rgba
   float4* lts = tab + P.n_tab;  // (n_lights,) the light table
@@ -376,14 +429,20 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
       reinterpret_cast<unsigned*>(dyn + 16 * (P.n_tab + P.n_lights));
   unsigned* cov = raw + P.n_words;
   short4* wins = reinterpret_cast<short4*>(dyn + P.fp_off);
-  int* k0s = reinterpret_cast<int*>(wins + P.n_slices);  // the schedule
+  // RUNS: per run, the block's footprint over the planes that read it
+  // {first row, last row, first column, last column}
+  int4* rects = reinterpret_cast<int4*>(dyn + P.fp_off);
+  int* k0s = RUNS ? reinterpret_cast<int*>(rects + P.n_runs)
+                  : reinterpret_cast<int*>(wins + P.n_slices);  // schedule
   T* ring = reinterpret_cast<T*>(dyn + P.ring_off);  // NBUF windows
   __shared__ float sc[N_SCALARS];
   __shared__ float tile[FD ? 2 : 1][BR + 2][BC + 2];  // FD samples + halo
   // per stage (two in flight): {buffer of slab k0, of slab k0 + 1, plane,
   // flags} and the two windows' first {row, column}; flags: 1 direct,
-  // 2 / 4 slab k0 / k0 + 1 copied by this stage (not reused)
-  __shared__ int4 stage_meta[2][2];
+  // 2 / 4 slab k0 / k0 + 1 copied by this stage (not reused). RUNS: the
+  // two runs' buffers, the plane, flags (1 direct); their footprints'
+  // first {row, column}; {widths, the slabs' planes in their runs}
+  __shared__ int4 stage_meta[2][RUNS ? 3 : 2];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ty = warp, tx = lane;
@@ -400,6 +459,9 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
   if (FD)
     for (int i = tid; i < 2 * (BR + 2) * (BC + 2); i += NT)
       (&tile[0][0][0])[i] = 0.0f;
+  if (RUNS)
+    for (int i = tid; i < P.n_runs; i += NT)
+      rects[i] = make_int4(0x7fffffff, -1, 0x7fffffff, -1);
   __syncthreads();
 
   const int n = P.n_slices;
@@ -434,27 +496,42 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
       if (j < n) {
         const Footprint f = footprint(sc, lam_of(sc, j), qa, qb, pa, pb,
                                       P.nr, P.nc, ortho);
-        Footprint u = f;
-        if (j + 1 < n) {
-          const Footprint g = footprint(sc, lam_of(sc, j + 1), qa, qb, pa,
-                                        pb, P.nr, P.nc, ortho);
-          u.r_lo = min(f.r_lo, g.r_lo);
-          u.r_hi = max(f.r_hi, g.r_hi);
-          u.c_lo = min(f.c_lo, g.c_lo);
-          u.c_hi = max(f.c_hi, g.c_hi);
-        }
-        short4 w = make_short4(-1, -1, -1, -1);
-        for (int t = 0; t < 2 && g_bytes > 0 && w.x < 0; ++t) {
-          const Footprint e = t == 0 ? u : f;
-          const int c0 = e.c_lo / per_chunk * per_chunk;
-          const int c1 = (e.c_hi / per_chunk + 1) * per_chunk - 1;
-          if (e.r_hi - e.r_lo < CR && c1 - c0 < CC) {
-            w = make_short4(e.r_lo, e.r_hi, c0, c1);
-            covers = t == 0 && j + 1 < n;
+        int k;
+        if constexpr (RUNS) {
+          // the plane's footprint joins its two slabs' runs
+          k = P.k0[j];
+          int* rc = reinterpret_cast<int*>(rects);
+          for (int s = 0; s < 2; ++s) {
+            const int x = P.sa < 0 ? P.na - 1 - (k + s) : k + s;
+            int* e = rc + 4 * (x / RP);
+            atomicMin(e, f.r_lo);
+            atomicMax(e + 1, f.r_hi);
+            atomicMin(e + 2, f.c_lo);
+            atomicMax(e + 3, f.c_hi);
           }
+        } else {
+          Footprint u = f;
+          if (j + 1 < n) {
+            const Footprint g = footprint(sc, lam_of(sc, j + 1), qa, qb, pa,
+                                          pb, P.nr, P.nc, ortho);
+            u.r_lo = min(f.r_lo, g.r_lo);
+            u.r_hi = max(f.r_hi, g.r_hi);
+            u.c_lo = min(f.c_lo, g.c_lo);
+            u.c_hi = max(f.c_hi, g.c_hi);
+          }
+          short4 w = make_short4(-1, -1, -1, -1);
+          for (int t = 0; t < 2 && g_bytes > 0 && w.x < 0; ++t) {
+            const Footprint e = t == 0 ? u : f;
+            const int c0 = e.c_lo / per_chunk * per_chunk;
+            const int c1 = (e.c_hi / per_chunk + 1) * per_chunk - 1;
+            if (e.r_hi - e.r_lo < CR && c1 - c0 < CC) {
+              w = make_short4(e.r_lo, e.r_hi, c0, c1);
+              covers = t == 0 && j + 1 < n;
+            }
+          }
+          wins[j] = w;
+          k = P.k0[j];
         }
-        wins[j] = w;
-        const int k = P.k0[j];
         k0s[j] = k;
         if (skip) {
           const int r0 = max(f.r_lo - 1, 0) / MCELL;
@@ -566,6 +643,95 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
     }
   };
 
+  // ---- run staging (RUNS) ---------------------------------------------
+  // Every thread keeps the same record of the run each run buffer holds.
+  int held[NRB];
+#pragma unroll
+  for (int b = 0; b < NRB; ++b) held[b] = -1;
+  const T* gst = P.sa < 0 ? grid - (P.na - 1) : grid;  // storage plane 0
+  const int xdir = P.sa < 0 ? -1 : 1;  // storage step of the traversal
+  auto run_fits = [&](int rho) -> bool {
+    const int4 e = rects[rho];
+    return e.y >= e.x && (e.y - e.x + 1) * (e.w - e.z + 1) <= P.run_cap;
+  };
+  auto find_run = [&](int rho) -> int {
+    int f = -1;
+#pragma unroll
+    for (int b = 0; b < NRB; ++b) f = held[b] == rho ? b : f;
+    return f;
+  };
+  auto free_buf = [&](unsigned busy) -> int {
+    int f = -1;
+#pragma unroll
+    for (int b = NRB - 1; b >= 0; --b) f = (busy >> b) & 1 ? f : b;
+    return f;
+  };
+  // copy run rho's footprint into buffer b, one cp.async a (row, column)
+  auto copy_run = [&](int rho, int b) {
+    const int4 e = rects[rho];
+    const int w = e.w - e.z + 1, total = (e.y - e.x + 1) * w;
+    const T* src = gst + (long long)rho * RP + (long long)e.x * P.sr
+                   + (long long)e.z * P.sc;
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(ring + b * P.run_cap * RP));
+    const int dr = NT / w, dc = NT - dr * w;
+    int r = tid / w, c = tid - r * w;
+    for (int i = tid; i < total; i += NT) {
+      cp_async(dst + (unsigned)(i * RB), src + r * P.sr + c * P.sc, RB);
+      r += dr;
+      c += dc;
+      if (c >= w) {
+        c -= w;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int bb = 0; bb < NRB; ++bb) held[bb] = bb == b ? rho : held[bb];
+  };
+  // Stage plane j into slot `slot` while the stage in slot `keep` (none:
+  // keep < 0) is sampled: the runs of its two slabs, each reused where a
+  // buffer holds it, else copied into a buffer that `keep` does not read.
+  auto stage_runs = [&](int j, int slot, int keep) {
+    if constexpr (RUNS) {
+      const int k = k0s[j];
+      const int xa = P.sa < 0 ? P.na - 1 - k : k, xb = xa + xdir;
+      const int ra = xa / RP, rb = xb / RP;
+      unsigned busy = 0u;
+      if (keep >= 0) {
+        const int4 km = stage_meta[keep][0];
+        if (!(km.w & 1)) busy = (1u << km.x) | (1u << km.y);
+      }
+      int ba = -1, bb = -1;
+      if (run_fits(ra) && run_fits(rb)) {
+        ba = find_run(ra);
+        if (ba < 0) {
+          ba = free_buf(busy);
+          copy_run(ra, ba);
+        }
+        busy |= 1u << ba;
+        bb = rb == ra ? ba : find_run(rb);
+        if (bb < 0) {
+          bb = free_buf(busy);  // none after a skip of two runs: direct
+          if (bb >= 0) copy_run(rb, bb);
+        }
+      }
+      cp_async_commit();
+      if (tid == 0) {
+        const int4 ea = rects[ra], eb = rects[rb];
+        stage_meta[slot][0] = make_int4(ba, bb, j, bb < 0 ? 1 : 0);
+        stage_meta[slot][1] = make_int4(ea.x, ea.z, eb.x, eb.z);
+        stage_meta[slot][2] = make_int4(ea.w - ea.z + 1, eb.w - eb.z + 1,
+                                         xa - ra * RP, xb - rb * RP);
+      }
+    }
+  };
+  auto stage_any = [&](int j, int slot, int keep) {
+    if constexpr (RUNS)
+      stage_runs(j, slot, keep);
+    else
+      stage(j, slot, keep);
+  };
+
   // ---- per pixel (two fan rows per pixel thread: ty and ty + 4) -------
   float q[2], l_in[2], l_out[2], exit_t[2], speed[2];
   bool live[2];
@@ -615,12 +781,22 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
     n_staged += direct ? 0 : 1;
     n_direct += direct ? 1 : 0;
     DirectTaps<T> dt;
-    StagedTaps<T> st;
+    std::conditional_t<RUNS, RunTaps<T>, StagedTaps<T>> st;
     if (direct) {
       dt.s0 = grid + (long long)k0s[jj] * P.sa;
       dt.s1 = dt.s0 + P.sa;
       dt.sr = P.sr;
       dt.sc = P.sc;
+    } else if constexpr (RUNS) {
+      const int4 sm1 = stage_meta[ss][1], sm2 = stage_meta[ss][2];
+      st.b0 = ring + sm0.x * P.run_cap * RP + sm2.z;
+      st.b1 = ring + sm0.y * P.run_cap * RP + sm2.w;
+      st.r0 = sm1.x;
+      st.c0 = sm1.y;
+      st.r1 = sm1.z;
+      st.c1 = sm1.w;
+      st.w0 = sm2.x;
+      st.w1 = sm2.y;
     } else {
       const int4 sm1 = stage_meta[ss][1];
       st.w0 = ring + sm0.x * BUF;
@@ -694,10 +870,10 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
   float smp_c[2] = {0.0f, 0.0f}, g1_c[2] = {0.0f, 0.0f};
   float g2_c[2] = {0.0f, 0.0f};  // plane j's samples (without FD)
   if (j < n) {
-    stage(j, 0, -1);
+    stage_any(j, 0, -1);
     __syncthreads();  // the first stage's record, for the second's reuse
     if (jn < n) {
-      stage(jn, 1, 0);
+      stage_any(jn, 1, 0);
       cp_async_wait_one();
     } else {
       cp_async_wait_all();
@@ -713,7 +889,7 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
     // 1. copy the stage of the plane after next (plane j's buffers are
     // free: its samples are taken)
     const int jnn = jn < n ? next_active(jn) : n;
-    if (jnn < n) stage(jnn, slot, slot ^ 1);
+    if (jnn < n) stage_any(jnn, slot, slot ^ 1);
     // 2. sample the next plane
     float smp_n[2] = {0.0f, 0.0f}, g1_n[2] = {0.0f, 0.0f};
     float g2_n[2] = {0.0f, 0.0f};
@@ -897,75 +1073,103 @@ __global__ void __launch_bounds__(NT, min_blocks(MODE, FD))
   if (P.block_planes != nullptr && tid == 0)
     P.block_planes[blockIdx.y * gridDim.x + blockIdx.x] = jpos;
   if (COUNT && P.stage_counts != nullptr && tid == 0) {
-    atomicAdd(P.stage_counts, n_staged);
+    atomicAdd(P.stage_counts + (RUNS ? 2 : 0), n_staged);
     atomicAdd(P.stage_counts + 1, n_direct);
   }
 }
 
 typedef void (*KernelFn)(Params);
 
-template <typename T, int MODE, bool FD, bool BF16, bool LIGHTS>
+// Where a launch reads its taps from (reported to the caller).
+enum : int { PATH_DIRECT = 0, PATH_SLABS = 1, PATH_RUNS = 2 };
+
+// A library holds either the timed variants or the counting ones: built
+// with SWSLICE_COUNTING=1 (ops/cuda_build.py, for the tests and
+// chip_smoke.py) it holds only the counting variants, else only the timed
+// ones, so the renderer's build compiles half the kernels.
+#ifndef SWSLICE_COUNTING
+#define SWSLICE_COUNTING 0
+#endif
+
+template <typename T, int MODE, bool FD, bool BF16, bool LIGHTS, bool RUNS>
 static KernelFn pick_count(bool count) {
-  return count ? &swslice_kernel<T, MODE, FD, true, BF16, LIGHTS>
-               : &swslice_kernel<T, MODE, FD, false, BF16, LIGHTS>;
+  if (count != (bool)SWSLICE_COUNTING) return nullptr;
+  return &swslice_kernel<T, MODE, FD, (bool)SWSLICE_COUNTING, BF16, LIGHTS,
+                         RUNS>;
 }
 
-template <typename T, int MODE, bool FD, bool BF16>
+template <typename T, int MODE, bool FD, bool BF16, bool RUNS>
 static KernelFn pick_lights(bool lights, bool count) {
-  return lights ? pick_count<T, MODE, FD, BF16, true>(count)
-                : pick_count<T, MODE, FD, BF16, false>(count);
+  return lights ? pick_count<T, MODE, FD, BF16, true, RUNS>(count)
+                : pick_count<T, MODE, FD, BF16, false, RUNS>(count);
 }
 
-template <typename T, bool BF16>
+template <typename T, bool BF16, bool RUNS>
 static KernelFn pick_mode(int mode, bool fd, bool lights, bool count) {
   // mode 0 shades nothing, so it has no light-table variant
-  if (mode == 0) return pick_count<T, 0, false, BF16, false>(count);
+  if (mode == 0) return pick_count<T, 0, false, BF16, false, RUNS>(count);
   if (mode == 1)
-    return fd ? pick_lights<T, 1, true, BF16>(lights, count)
-              : pick_lights<T, 1, false, BF16>(lights, count);
-  return fd ? pick_lights<T, 2, true, BF16>(lights, count)
-            : pick_lights<T, 2, false, BF16>(lights, count);
+    return fd ? pick_lights<T, 1, true, BF16, RUNS>(lights, count)
+              : pick_lights<T, 1, false, BF16, RUNS>(lights, count);
+  return fd ? pick_lights<T, 2, true, BF16, RUNS>(lights, count)
+            : pick_lights<T, 2, false, BF16, RUNS>(lights, count);
 }
 
 template <typename T>
 static KernelFn pick_typed(int mode, bool fd, bool bf16, bool lights,
-                           bool count) {
-  return bf16 ? pick_mode<T, true>(mode, fd, lights, count)
-              : pick_mode<T, false>(mode, fd, lights, count);
+                           bool count, bool runs) {
+  if (runs)
+    return bf16 ? pick_mode<T, true, true>(mode, fd, lights, count)
+                : pick_mode<T, false, true>(mode, fd, lights, count);
+  return bf16 ? pick_mode<T, true, false>(mode, fd, lights, count)
+              : pick_mode<T, false, false>(mode, fd, lights, count);
 }
 
 static int elem_size(int dtype) {
   return dtype == 0 ? 4 : dtype == 2 ? 1 : 2;
 }
 
-// The variant for (dtype, mode, fd, bf16, lights, count), its threads per
-// block and its dynamic shared memory (the RGBA and light tables,
-// per-plane bits, windows and schedule, and the slab buffers where the
-// grid's rows can be staged: without them the L1 cache keeps that room);
-// null for an unknown dtype.
+// The variant for (dtype, mode, fd, bf16, lights, count, path), its
+// threads per block and its dynamic shared memory: the RGBA and light
+// tables and per-plane bits; then the per-plane windows and schedule and,
+// where the grid's rows can be staged, the slab buffers (without them
+// the L1 cache keeps that room), or on the run path the per-run
+// footprints, the schedule and NRB run buffers of `run_cap` runs each.
+// Null for an unknown dtype.
 static KernelFn variant(int dtype, int mode, int fd, int bf16, int n_lights,
-                        int count, int n_tab, int n_slices, bool staged,
-                        int* threads, size_t* smem, int* fp_off,
-                        int* ring_off) {
+                        int count, int n_tab, int n_slices, int path,
+                        int n_runs, int run_cap, int* threads, size_t* smem,
+                        int* fp_off, int* ring_off) {
   const bool fd_on = mode >= 1 && fd;
   const bool lights = n_lights > 0;
+  const bool runs = path == PATH_RUNS;
   KernelFn k;
   switch (dtype) {
-    case 0: k = pick_typed<float>(mode, fd_on, bf16, lights, count); break;
-    case 1: k = pick_typed<bf16_t>(mode, fd_on, bf16, lights, count); break;
+    case 0:
+      k = pick_typed<float>(mode, fd_on, bf16, lights, count, runs);
+      break;
+    case 1:
+      k = pick_typed<bf16_t>(mode, fd_on, bf16, lights, count, runs);
+      break;
     case 2:
-      k = pick_typed<unsigned char>(mode, fd_on, bf16, lights, count);
+      k = pick_typed<unsigned char>(mode, fd_on, bf16, lights, count, runs);
       break;
     case 3:
-      k = pick_typed<unsigned short>(mode, fd_on, bf16, lights, count);
+      k = pick_typed<unsigned short>(mode, fd_on, bf16, lights, count, runs);
       break;
     default: return nullptr;
   }
   const int words = (2 * (n_slices / 32 + 2) + 3) / 4 * 4;
   *fp_off = 16 * (n_tab + n_lights) + 4 * words;
-  *ring_off = *fp_off + (12 * n_slices + 15) / 16 * 16;
-  *smem = (size_t)*ring_off
-          + (staged ? (size_t)NBUF * CR * CC * elem_size(dtype) : 0);
+  if (runs) {
+    *ring_off = *fp_off + (16 * n_runs + 4 * n_slices + 15) / 16 * 16;
+    *smem = (size_t)*ring_off + (size_t)NRB * run_cap * RB;
+  } else {
+    *ring_off = *fp_off + (12 * n_slices + 15) / 16 * 16;
+    *smem = (size_t)*ring_off
+            + (path == PATH_SLABS ? (size_t)NBUF * CR * CC * elem_size(dtype)
+                                  : 0);
+  }
   *threads = NT;
   return k;
 }
@@ -985,6 +1189,88 @@ static int copy_bytes(const void* grid, long long sa, long long sr,
   return 0;
 }
 
+// Whether the grid's runs along the traversal can be staged: the
+// traversal runs along the storage's fastest axis (slab stride +-1), and
+// runs of run_size bytes aligned to the storage tile every (row, column)
+// (its plane 0, row and column strides and plane count all multiples).
+static bool runs_ok(const void* grid, long long sa, long long sr,
+                    long long sc, int na, int dtype) {
+  const int es = elem_size(dtype), rb = RB;
+  if (sa != 1 && sa != -1) return false;
+  const uintptr_t base =
+      (uintptr_t)grid - (sa < 0 ? (uintptr_t)(na - 1) * es : 0);
+  return base % rb == 0 && (sr * es) % rb == 0 && (sc * es) % rb == 0
+         && ((long long)na * es) % rb == 0;
+}
+
+// Runs a run buffer of the run variant holds when `blocks` of its blocks
+// share an SM: the shared memory left to each, less its fixed part, over
+// NRB buffers (0 where not even a few runs fit).
+static int run_capacity(KernelFn k, int blocks, size_t fixed) {
+  int dev, per_sm, reserved;
+  cudaFuncAttributes a;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(
+             &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)
+             != cudaSuccess
+      || cudaDeviceGetAttribute(
+             &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)
+             != cudaSuccess
+      || cudaFuncGetAttributes(&a, (const void*)k) != cudaSuccess)
+    return 0;
+  // shared memory is allocated to a block in 128-byte units: count 256
+  const long long room = (long long)per_sm / blocks / 256 * 256 - reserved
+                         - (long long)a.sharedSizeBytes - (long long)fixed;
+  const long long cap = room / (NRB * RB);
+  return cap < 64 ? 0 : (int)cap;
+}
+
+// The path, variant and launch configuration of a launch: slab windows
+// where the grid's rows can be copied, else runs along the traversal
+// where they can be and pay, else taps from the grid. A run buffer must
+// hold a block's footprint over the planes that read the run, which grows
+// with the voxels per fan pixel and the view's angle off the axis: the
+// caller estimates it over the view's blocks and runs (`fp50`, `fp90`:
+// the median and 90th percentile in voxels, 0: unknown, taken to fit).
+// Runs are staged only where a plane's share of the median footprint's
+// copy is at most a 32-byte sector a fan pixel of the block (f32 runs
+// hold two planes: a larger copy costs more than the direct taps it
+// saves, PERF.md). The run variant then takes three blocks an SM where
+// nine runs in ten fit its buffers, else two, with larger buffers, where
+// half of them fit; else the direct taps keep the slab variant's blocks
+// per SM and L1 cache.
+static KernelFn plan(const void* grid, long long sa, long long sr,
+                     long long sc, int na, int nr, int nc, int dtype,
+                     int mode, int fd, int bf16, int n_lights, int count,
+                     int n_tab, int n_slices, int fp50, int fp90, int* path,
+                     int* copy, int* n_runs, int* run_cap, int* threads,
+                     size_t* smem, int* fp_off, int* ring_off) {
+  const int es = elem_size(dtype);
+  *copy = copy_bytes(grid, sa, sr, sc, nr, nc, es);
+  *n_runs = 0;
+  *run_cap = 0;
+  *path = *copy > 0 ? PATH_SLABS : PATH_DIRECT;
+  if (*path == PATH_DIRECT && runs_ok(grid, sa, sr, sc, na, dtype)) {
+    const int n = na / (RB / es);
+    const KernelFn k = variant(dtype, mode, fd, bf16, n_lights, count, n_tab,
+                               n_slices, PATH_RUNS, n, 0, threads, smem,
+                               fp_off, ring_off);
+    const int cap3 = k == nullptr ? 0 : run_capacity(k, 3, *smem);
+    const int cap2 = k == nullptr ? 0 : run_capacity(k, 2, *smem);
+    int cap = 0;
+    if (fp50 * es <= 32 * BR * BC)
+      cap = cap3 > 0 && fp90 <= cap3 ? cap3
+            : cap2 > 0 && fp50 <= cap2 ? cap2 : 0;
+    if (cap > 0) {
+      *path = PATH_RUNS;
+      *n_runs = n;
+      *run_cap = cap;
+    }
+  }
+  return variant(dtype, mode, fd, bf16, n_lights, count, n_tab, n_slices,
+                 *path, *n_runs, *run_cap, threads, smem, fp_off, ring_off);
+}
+
 extern "C" {
 
 int ovr_swslice_launch(const void* grid, long long sa, long long sr,
@@ -998,7 +1284,8 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
                        const float* exit_map, int mode, int fd, int bf16,
                        int term, float* out,
                        int* block_planes, int* pixel_samples,
-                       int* stage_counts, void* stream) {
+                       int* stage_counts, int fp50, int fp90, void* stream,
+                       int* path) {
   if (n_tab < 1 || n_tab > MAX_TAB || mode < 0 || mode > 2 || wi < 1
       || hi < 1 || n_slices < 0 || na < 2)
     return (int)cudaErrorInvalidValue;
@@ -1007,19 +1294,19 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
       || (n_lights > 0 && (lights == nullptr || mode == 0)))
     return (int)cudaErrorInvalidValue;
   if (dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
-  int threads, fp_off, ring_off;
+  int threads, fp_off, ring_off, g, n_runs, run_cap;
   size_t smem;
   const int count = pixel_samples != nullptr || stage_counts != nullptr;
-  const int g = copy_bytes(grid, sa, sr, sc, nr, nc, elem_size(dtype));
-  const KernelFn k = variant(dtype, mode, fd, bf16, n_lights, count, n_tab,
-                             n_slices, g > 0, &threads, &smem, &fp_off,
-                             &ring_off);
+  const KernelFn k = plan(grid, sa, sr, sc, na, nr, nc, dtype, mode, fd,
+                          bf16, n_lights, count, n_tab, n_slices, fp50,
+                          fp90, path, &g, &n_runs, &run_cap, &threads, &smem,
+                          &fp_off, &ring_off);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   Params P{grid, sa, sr, sc, na, nr, nc, tab, n_tab, scal, pg, wi, qg, hi,
            k0, n_slices, lgrid, k0l, la, lr, lc, lights, n_lights, n_dir,
            maj, ma, mr, mc, flip, exit_map, term, out, block_planes,
            pixel_samples, stage_counts, g, n_slices / 32 + 2, fp_off,
-           ring_off};
+           ring_off, run_cap, n_runs};
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -1029,23 +1316,23 @@ int ovr_swslice_launch(const void* grid, long long sa, long long sr,
   return (int)cudaGetLastError();
 }
 
-// Threads per block, dynamic shared memory and resident blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the variant, and
-// launch configuration, that a launch with these arguments (and no
+// The path, threads per block, dynamic shared memory and resident blocks
+// per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the variant,
+// and launch configuration, that a launch with these arguments (and no
 // counts) runs.
 int ovr_swslice_occupancy(const void* grid, long long sa, long long sr,
-                          long long sc, int nr, int nc, int dtype, int mode,
-                          int fd, int bf16, int n_lights, int n_tab,
-                          int n_slices, int* threads, int* smem_bytes,
+                          long long sc, int na, int nr, int nc, int dtype,
+                          int mode, int fd, int bf16, int n_lights,
+                          int n_tab, int n_slices, int fp50, int fp90,
+                          int* path, int* threads, int* smem_bytes,
                           int* blocks_per_sm) {
   if (dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
-  int fp_off, ring_off;
+  int fp_off, ring_off, g, n_runs, run_cap;
   size_t smem;
-  const bool staged =
-      copy_bytes(grid, sa, sr, sc, nr, nc, elem_size(dtype)) > 0;
-  const KernelFn k = variant(dtype, mode, fd, bf16, mode >= 1 ? n_lights : 0,
-                             0, n_tab, n_slices, staged, threads, &smem,
-                             &fp_off, &ring_off);
+  const KernelFn k = plan(grid, sa, sr, sc, na, nr, nc, dtype, mode, fd,
+                          bf16, mode >= 1 ? n_lights : 0, 0, n_tab, n_slices,
+                          fp50, fp90, path, &g, &n_runs, &run_cap, threads,
+                          &smem, &fp_off, &ring_off);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)smem;
   cudaError_t e = cudaFuncSetAttribute(

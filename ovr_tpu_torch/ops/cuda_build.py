@@ -53,12 +53,13 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def load(name: str) -> Built:
-    """Compile `csrc/<name>.cu` if no library for its current source
-    exists, then load it."""
+def load(name: str, defines: tuple = ()) -> Built:
+    """Compile `csrc/<name>.cu` with the macros `defines` ("NAME=VALUE")
+    if no library for its current source exists, then load it."""
     src = CSRC_DIR / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{key}.so"
     log_path = out.with_suffix(".log")
     t0 = time.perf_counter()
@@ -67,7 +68,7 @@ def load(name: str) -> Built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src} "

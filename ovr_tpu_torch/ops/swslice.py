@@ -61,9 +61,16 @@ from ovr_tpu_torch.utils import trace
 
 LAUNCHES = 0  # kernel launches through `slice_composite`
 LAUNCHES_BF16 = 0  # of them, launches of the kernel's bf16 variant
+# of them, by the path the launcher chose from the grid's layout and the
+# run footprint: staged runs along the traversal (principal-x views), and
+# taps all read from the grid (the rest staged slab windows)
+LAUNCHES_RUNS = 0
+LAUNCHES_DIRECT = 0
 PLAIN_CALLS = 0  # runs of `slice_composite_plain`, on any device
 trace.register_counter("swslice.LAUNCHES", lambda: LAUNCHES)
 trace.register_counter("swslice.LAUNCHES_BF16", lambda: LAUNCHES_BF16)
+trace.register_counter("swslice.LAUNCHES_RUNS", lambda: LAUNCHES_RUNS)
+trace.register_counter("swslice.LAUNCHES_DIRECT", lambda: LAUNCHES_DIRECT)
 
 BLOCK_ROWS = 8  # fan rows per CUDA block (csrc/swslice.cu: BR)
 BLOCK_COLS = 32  # fan columns per CUDA block (csrc/swslice.cu: BC)
@@ -71,6 +78,9 @@ MC = 16  # macrocell edge in voxels (render.accel.MACROCELL_SIZE)
 T_EPS = 1e-4  # termination transmittance (alpha >= 0.9999)
 MAJ_EPS = 1.19e-7  # a macrocell at or below this majorant is empty
 MAX_TAB = 2048  # RGBA table rows the kernel keeps in shared memory
+RUN_BYTES = 8  # bytes of a staged run along the traversal (csrc: RB)
+# where a launch reads its taps (csrc/swslice.cu: PATH_*)
+PATHS = ("direct", "slabs", "runs")
 
 # scalar vector layout (N_SCALARS,) f32, as in ovr_tpu.ops.swslice.
 # S_LO1/EX1/LO2/EX2: sample box (texel coordinates); S_C*: clip box (ray
@@ -109,6 +119,15 @@ def _prepared_scalars(scalars, grid_dtype, pg, qg) -> torch.Tensor:
             sc[slot].fill_(1.0)
     sc[S_QLO] = qg[0]
     return sc
+
+
+def run_planes(dtype: torch.dtype, rows: int, bf16: bool) -> int:
+    """Planes a run of the kernel's run staging holds (RUN_BYTES of the
+    grid as the kernel streams it, `_streamed`) for a grid of this dtype
+    and view rows."""
+    if bf16 and dtype == torch.float32 and rows % 16 == 0:
+        dtype = torch.bfloat16
+    return RUN_BYTES // dtype.itemsize
 
 
 def _check(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices, mode, lgrid,
@@ -156,7 +175,8 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
                     axial_flip: bool = False, exit_map=None,
                     block_planes: Optional[torch.Tensor] = None,
                     pixel_samples: Optional[torch.Tensor] = None,
-                    stage_counts: Optional[torch.Tensor] = None):
+                    stage_counts: Optional[torch.Tensor] = None,
+                    run_footprint: tuple = (0, 0)):
     """Run the fused slice loop. grid_v (A, Nr, Nc) volume in traversal
     layout (f32, bf16, u8 or u16; any strides); rgba_tab (K, 4) merged
     nodal table; scalars (N_SCALARS,) in the S_* layout; pg (Wi,), qg
@@ -184,10 +204,18 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
     T > T_EPS and its opacity is not zero, and in modes >= 1 also the
     previous computed plane before each such one (its sample feeds the
     axial difference). Skipping and termination leave it unchanged.
-    `stage_counts` (CUDA tensors only), if given, is an int32 (2,) tensor
+    `stage_counts` (CUDA tensors only), if given, is an int32 (3,) tensor
     that receives the planes the kernel's blocks sampled from staged slab
-    windows and from the grid directly. Given either, the kernel runs its
-    counting variant; the timed launch carries no counter.
+    windows, from the grid directly and from staged runs along the
+    traversal. Given either, the kernel runs its counting variant (built
+    apart from the timed ones); the timed launch carries no counter.
+    `run_footprint` (CUDA tensors only): the caller's estimate of a block's
+    voxel footprint over the planes that read one run of the traversal
+    axis (principal-x views, `render.shearwarp._run_footprint`), as the
+    (median, 90th percentile) over the view's blocks and runs; the
+    launcher sizes the kernel's run staging from it, or reads the taps
+    from the grid where too few runs would fit (0: taken to fit). It
+    changes which path the kernel takes, never the result.
 
     Returns (8, Hi, Wi) f32. CUDA tensors run the kernel (or raise);
     CPU tensors run `slice_composite_plain`.
@@ -208,7 +236,8 @@ def slice_composite(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices: int,
         raise ValueError("exit_map must be (Hi, Wi)")
     opts = dict(n_slices=n_slices, mode=mode, n_dir=n_dir, fd=fd, bf16=bf16,
                 axial_flip=axial_flip, block_planes=block_planes,
-                pixel_samples=pixel_samples, stage_counts=stage_counts)
+                pixel_samples=pixel_samples, stage_counts=stage_counts,
+                run_footprint=run_footprint)
     diff = (grid_v, rgba_tab, scalars, pg, qg, lgrid, lights, exit_map)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in diff):
@@ -232,6 +261,14 @@ def _run(grid_v, rgba_tab, scalars, pg, qg, k0, *, n_slices, stage_counts,
                                  n_slices, **kw)
 
 
+def _lib(counting: bool = False):
+    """The kernel's library: the timed variants, or (`counting`) the
+    counting ones, which csrc/swslice.cu builds apart."""
+    from ovr_tpu_torch.ops import cuda_build
+    return cuda_build.load(
+        "swslice", ("SWSLICE_COUNTING=1",) if counting else ()).lib
+
+
 def _bind(lib):
     f = lib.ovr_swslice_launch
     if f.argtypes is None:
@@ -246,11 +283,13 @@ def _bind(lib):
             p, i, i, i, i,  # majorants, dims, flip
             p,  # exit map
             i, i, i, i,  # mode, fd, bf16, term
-            p, p, p, p, p]  # out, the three counts, stream
+            p, p, p, p,  # out, the three counts
+            i, i, p,  # the run footprint's median and 90th percentile, stream
+            ctypes.POINTER(ctypes.c_int)]  # the path taken
         f.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ovr_swslice_occupancy.argtypes = ([p, ll, ll, ll] + [i] * 9
-                                              + [ip] * 3)
+        lib.ovr_swslice_occupancy.argtypes = ([p, ll, ll, ll] + [i] * 12
+                                              + [ip] * 4)
         lib.ovr_swslice_occupancy.restype = ctypes.c_int
         lib.ovr_swslice_error_string.argtypes = [ctypes.c_int]
         lib.ovr_swslice_error_string.restype = ctypes.c_char_p
@@ -266,28 +305,29 @@ def _bind(lib):
 
 def kernel_occupancy(grid_v, mode: int, fd: bool, n_tab: int,
                      n_slices: int, axial_flip: bool = False,
-                     bf16: bool = False, n_lights: int = 0) -> dict:
+                     bf16: bool = False, n_lights: int = 0,
+                     run_footprint: tuple = (0, 0)) -> dict:
     """What the kernel variant and launch configuration that
     `slice_composite` runs for these arguments (without counts) take on
     the current card,
-    as the CUDA runtime reports it: `threads` per block, `smem_bytes` of
-    dynamic shared memory and `blocks_per_sm`
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    from ovr_tpu_torch.ops import cuda_build
-    lib = cuda_build.load("swslice").lib
+    as the CUDA runtime reports it: the `path` its taps take (`PATHS`),
+    `threads` per block, `smem_bytes` of dynamic shared memory and
+    `blocks_per_sm` (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _lib()
     _bind(lib)
     grid_v = _streamed(grid_v, bf16)
     base, sa, sr, scs = _grid_layout(grid_v, axial_flip)
-    vals = [ctypes.c_int() for _ in range(3)]
+    vals = [ctypes.c_int() for _ in range(4)]
     err = lib.ovr_swslice_occupancy(
-        base, sa, sr, scs, grid_v.shape[1], grid_v.shape[2],
-        _DTYPE_CODE[grid_v.dtype], mode, int(fd), int(bf16), n_lights,
-        n_tab, n_slices, *map(ctypes.byref, vals))
+        base, sa, sr, scs, *grid_v.shape, _DTYPE_CODE[grid_v.dtype], mode,
+        int(fd), int(bf16), n_lights, n_tab, n_slices, *run_footprint,
+        *map(ctypes.byref, vals))
     if err:
         raise RuntimeError("swslice occupancy query failed: "
                            + lib.ovr_swslice_error_string(err).decode())
-    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"),
-                    (v.value for v in vals)))
+    path, *occ = (v.value for v in vals)
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), occ),
+                path=PATHS[path])
 
 
 def _grid_layout(grid_v, axial_flip):
@@ -310,9 +350,8 @@ def _check_int32(name, t, n):
 def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
                           *, mode, lgrid, k0l, lights, n_dir, majorant_v,
                           term, fd, bf16, axial_flip, exit_map, block_planes,
-                          pixel_samples, stage_counts):
-    global LAUNCHES, LAUNCHES_BF16
-    from ovr_tpu_torch.ops import cuda_build
+                          pixel_samples, stage_counts, run_footprint):
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_RUNS, LAUNCHES_DIRECT
 
     dev = grid_v.device
     for t in (rgba_tab, scalars, pg, qg, k0, lgrid, k0l, lights, majorant_v,
@@ -321,7 +360,8 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
     if rgba_tab.shape[0] > MAX_TAB:
         raise ValueError(f"rgba_tab has more than {MAX_TAB} rows")
-    launch = _bind(cuda_build.load("swslice").lib)
+    lib = _lib(pixel_samples is not None or stage_counts is not None)
+    launch = _bind(lib)
     grid_v = _streamed(grid_v, bf16)
     n_a, n_r, n_c = grid_v.shape
     hi, wi = qg.shape[0], pg.shape[0]
@@ -354,10 +394,11 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
     _check_int32("block_planes", block_planes,
                  math.ceil(hi / BLOCK_ROWS) * math.ceil(wi / BLOCK_COLS))
     _check_int32("pixel_samples", pixel_samples, hi * wi)
-    _check_int32("stage_counts", stage_counts, 2)
+    _check_int32("stage_counts", stage_counts, 3)
     if stage_counts is not None:
         stage_counts.zero_()  # the kernel's blocks add into it
     out = torch.empty((8, hi, wi), dtype=torch.float32, device=dev)
+    path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
@@ -373,13 +414,14 @@ def _slice_composite_cuda(grid_v, rgba_tab, scalars, pg, qg, k0, n_slices,
             out.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (block_planes, pixel_samples, stage_counts)),
-            stream)
+            *run_footprint, stream, ctypes.byref(path))
     if err:
-        lib = cuda_build.load("swslice").lib
         raise RuntimeError("swslice kernel launch failed: "
                            + lib.ovr_swslice_error_string(err).decode())
     LAUNCHES += 1
     LAUNCHES_BF16 += int(bf16)
+    LAUNCHES_RUNS += int(PATHS[path.value] == "runs")
+    LAUNCHES_DIRECT += int(PATHS[path.value] == "direct")
     return out
 
 
@@ -979,10 +1021,12 @@ def slice_composite_plain(grid_v, rgba_tab, scalars, pg, qg, k0,
                           majorant_v=None, term: bool = True, fd: bool = True,
                           bf16: bool = False, axial_flip: bool = False,
                           exit_map=None, block_planes=None,
-                          pixel_samples=None):
+                          pixel_samples=None, run_footprint=(0, 0)):
     """The fused slice loop in PyTorch, arithmetic in the kernel's order
     and per-block skipping/termination as the kernel does them. Same
-    arguments and result as `slice_composite` (without `stage_counts`)."""
+    arguments and result as `slice_composite` (without `stage_counts`;
+    `run_footprint` picks the kernel's tap path only, so it is taken and
+    left unused)."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     f32 = torch.float32

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -87,6 +88,11 @@ class SwStatic:
     # interior eye: planes [0, slice0_static) lie behind the eye's axial
     # plane and cover no ray interval; the schedule starts here
     slice0_static: int = 0
+    # views along the grid's fastest axis (x): the (median, 90th
+    # percentile) voxels of a slice-kernel block's footprint over the
+    # planes that read one staged run (`_run_footprint`), from which the
+    # kernel's launcher sizes its run staging; (0, 0) for other views
+    run_footprint: tuple = (0, 0)
 
 
 def _np(x) -> np.ndarray:
@@ -175,11 +181,126 @@ def resolve_static(scene, camera, cfg) -> Optional[SwStatic]:
         qstep = max(1, n_slices // 8)
         slice0_static = max(0, min((s0 // qstep) * qstep, n_slices - 4))
     big = wi >= 1024 or dims_xyz[w1] >= 512
+    run_fp = (0, 0)
+    if axis == 0:
+        lo_w = _np(vol.world_lo).astype(np.float64)
+        run_fp = _run_footprint(
+            d, h, v, eye, lo_w, ext, dims_xyz, sign, n_slices,
+            slice0_static, (cfg.height, cfg.width), (hi_i, wi),
+            camera.kind == ORTHOGRAPHIC, big,
+            swslice.run_planes(vol.grid.dtype, dims_xyz[w2], cfg.sw_bf16))
     return SwStatic(axis=axis, sign=sign, n_slices=n_slices,
                     inter_h=hi_i, inter_w=wi, swap=swap,
                     separable=separable, term=bool(cfg.sw_term),
                     bf16=bool(cfg.sw_bf16), fd_grad=bool(big),
-                    slice0_static=slice0_static)
+                    slice0_static=slice0_static, run_footprint=run_fp)
+
+
+@functools.lru_cache(maxsize=64)
+def _run_samples(fan, fd, na, run_planes, n_slices, slice0, sign,
+                 n_samples):
+    """The camera-independent part of `_run_footprint`: of n_samples
+    block rows and columns spread over the fan, the extreme sample rows
+    and columns (fan indices + 0.5, with the FD halo: its rows lie on the
+    fan's lattice past its edges, its columns are clamped to the fan),
+    (axis: rows, columns; edge x sample); and of n_samples runs spread
+    along x, the axial extent of the planes that read each (their two
+    slabs lie in its voxels, so their axial texel lies in [first - 1,
+    last + 1)), clipped to the schedule, as fractions of the box (run
+    end x sample)."""
+    k = np.arange(n_samples)
+    halo = 1 if fd else 0
+    idx = []
+    for n_fan, b, clamp in ((fan[0], swslice.BLOCK_ROWS, False),
+                            (fan[1], swslice.BLOCK_COLS, True)):
+        first = k * (-(-n_fan // b) - 1) // (n_samples - 1) * b - halo
+        last = np.minimum(first + halo + b, n_fan) - 1 + halo
+        if clamp:
+            first, last = np.maximum(first, 0), np.minimum(last, n_fan - 1)
+        idx.append(np.concatenate([first, last]) + 0.5)
+    z_lo, z_hi = slice0 / n_slices, 1.0
+    if sign < 0:
+        z_lo, z_hi = 0.0, 1.0 - z_lo
+    first = k * (na // run_planes - 1) // (n_samples - 1) * run_planes
+    z = np.concatenate([first - 0.5, first + run_planes + 0.5]) / na
+    return np.stack(idx), np.clip(z, z_lo, z_hi)
+
+
+def _run_footprint(d, h, v, eye, lo, ext, dims_xyz, sign, n_slices, slice0,
+                   screen, fan, ortho, fd, run_planes, n_samples=12):
+    """For a view along x (the grid's fastest axis), the (median, 90th
+    percentile) over the view's slice-kernel blocks and staged runs of the
+    voxels (rows x columns) a block's footprint covers over the planes
+    that read one run: the run buffers must hold it (csrc/swslice.cu,
+    `plan`). Host-side, from the camera basis (`_np_basis`) and the plan;
+    it follows `frame_setup`'s fan and schedule and the kernel's
+    footprint rule on a grid of n_samples^3 (block row, block column,
+    run), counting only pairs whose block centre lies inside the grid's
+    section on the run's planes. (0, 0) where none does. It runs on every
+    camera change, so it keeps to a few dozen array operations."""
+    (height, width), ns = screen, n_samples
+    idx, z = _run_samples(fan, fd, dims_xyz[0], run_planes, n_slices,
+                          slice0, sign, ns)
+    d, h, v, eye, lo, ext = (np.asarray(x, dtype=np.float64).tolist()
+                             for x in (d, h, v, eye, lo, ext))
+    # the fan's range over the screen's corner rays, rows (z) then
+    # columns (y), as `frame_setup` takes it (in Python floats: a handful
+    # of numbers)
+    su, sv = 0.5 - 0.5 / width, 0.5 - 0.5 / height
+    base = eye if ortho else d
+    x_lo, step = [], []
+    for c, n_fan in ((2, fan[0]), (1, fan[1])):
+        xs = []
+        for cu, cv in ((-su, -sv), (su, -sv), (-su, sv), (su, sv)):
+            x = base[c] + cu * h[c] + cv * v[c]
+            xs.append(x if ortho
+                      else x / ((d[0] + cu * h[0] + cv * v[0]) * sign))
+        m = 0.01 * (max(xs) - min(xs)) + 1e-6
+        x_lo.append(min(xs) - m)
+        step.append((max(xs) - min(xs) + 2 * m) / n_fan)
+    edges = idx * np.array(step)[:, None] + np.array(x_lo)[:, None]
+    lam = z * ext[0] + (lo[0] - eye[0])
+    lam *= 1.0 / d[0] if ortho else float(sign)  # (2 * ns,): run ends
+    n1 = np.array([[[dims_xyz[2] - 1.0]], [[dims_xyz[1] - 1.0]]])
+    scale = np.array([[[dims_xyz[2] / ext[2]]], [[dims_xyz[1] / ext[1]]]])
+    # the texel of fan coordinate x on plane lam (the kernel's vr_of /
+    # vc_of): (x * lam + e - origin) * scale, or (x + d * lam - origin) *
+    # scale in orthographic views
+    shift = np.array([[[c - o]] for c, o in (
+        (0.0 if ortho else eye[2], lo[2] + 0.5 * ext[2] / dims_xyz[2]),
+        (0.0 if ortho else eye[1], lo[1] + 0.5 * ext[1] / dims_xyz[1]))])
+    slope = np.array([[[d[2]]], [[d[1]]]])
+
+    def texel(x, lam_):
+        # (axis, edge, run end) texel positions
+        if ortho:
+            return (x[:, :, None] + slope * lam_ + shift) * scale
+        return (x[:, :, None] * lam_ + shift) * scale
+
+    t = texel(edges, lam)
+    corners = (t[:, :ns, :ns], t[:, :ns, ns:], t[:, ns:, :ns], t[:, ns:, ns:])
+    # the voxel span [floor(first), floor(last) + 1], clamped to the grid
+    # as the kernel clamps it (axis, block, run), and whether the block's
+    # centre is inside the section
+    t_lo = np.minimum(np.minimum(corners[0], corners[1]),
+                      np.minimum(corners[2], corners[3]))
+    t_hi = np.maximum(np.maximum(corners[0], corners[1]),
+                      np.maximum(corners[2], corners[3]))
+    t_lo = np.floor(np.minimum(np.maximum(t_lo, 0.0), n1))
+    t_hi = np.floor(np.minimum(np.maximum(t_hi, 0.0), n1))
+    span = np.minimum(t_hi + 1.0, n1) - t_lo + 1.0
+    mid = texel((edges[:, :ns] + edges[:, ns:]) * 0.5,
+                (lam[:ns] + lam[ns:]) * 0.5)
+    ok = (mid >= 0.0) & (mid <= n1)
+    inside = ok[0][:, None, :] & ok[1][None, :, :]
+    if not ortho:
+        inside &= (lam[:ns] + lam[ns:] > 0)[None, None, :]
+    area = (span[0][:, None, :] * span[1][None, :, :])[inside]
+    if area.size == 0:
+        return (0, 0)
+    i50, i90 = (area.size - 1) // 2, (area.size - 1) * 9 // 10
+    area = np.partition(area, (i50, i90))
+    return (int(area[i50]), int(area[i90]))
 
 
 # ---------------------------------------------------------------------------
@@ -837,7 +958,8 @@ def render_shearwarp(scene, cfg, camera, jitter=None, light_grid=None,
         grid, s["rgba_tab"], s["sc"], pg, qg, s["k0"], s["n_loc"],
         mode=mode, lgrid=lgrid, k0l=s["k0l"], lights=s["lights"],
         n_dir=key.n_dir if mode else 0, majorant_v=maj_v, term=sw.term,
-        fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0, exit_map=exit_map)
+        fd=sw.fd_grad, bf16=sw.bf16, axial_flip=sign < 0, exit_map=exit_map,
+        run_footprint=sw.run_footprint)
     trace.stage("warp", dev)
     color = out8[0:3].permute(1, 2, 0)
     grad = out8[3:6].permute(1, 2, 0)

@@ -53,6 +53,13 @@ CAMERAS = {
     "ortho": dict(from_=(0.5, 0.5, -2.0), at=(0.5, 0.5, 0.5), height=1.3,
                   kind="orthographic"),
     "back": dict(from_=(0.45, 0.55, 2.4), at=(0.5, 0.5, 0.5), fovy=40.0),
+    # principal x views (the traversal along the storage's fastest axis):
+    # from -x, from +x (walked backward), orthographic near 45 degrees
+    "side": dict(from_=(-1.5, 0.8, 1.1), at=(0.5, 0.5, 0.5), fovy=40.0),
+    "side-back": dict(from_=(2.4, 0.35, 0.2), at=(0.5, 0.5, 0.5),
+                      fovy=40.0),
+    "side-ortho": dict(from_=(-1.3, 0.6, 2.1), at=(0.5, 0.5, 0.5),
+                       height=1.3, kind="orthographic"),
 }
 
 
@@ -130,6 +137,9 @@ def assert_out_close(a, b, rgb=5e-5, depth=2e-4):
     ("none", True, True, "u16", "persp", 0),
     ("diffuse", False, False, "u16", "back", 3),
     ("shadow", True, True, "u16", "ortho", 1),
+    ("none", True, False, "f32", "side", 0),
+    ("diffuse", True, False, "u16", "side-back", 2),
+    ("shadow", False, True, "u8", "side-ortho", 0),
 ])
 def test_kernel_matches_plain_on_card(shading, fd, skip, dtype, cam,
                                       n_lights):
@@ -141,25 +151,26 @@ def test_kernel_matches_plain_on_card(shading, fd, skip, dtype, cam,
                    n_lights=n_lights, device="cuda")
     args, kw = capture(scene, shading, fd=fd, skip=skip)
     for term in (False, True):
-        before = swslice.LAUNCHES
+        before = swslice.LAUNCHES, swslice.LAUNCHES_RUNS
         out = swslice.slice_composite(*args, **dict(kw, term=term))
         torch.cuda.synchronize()
-        assert swslice.LAUNCHES == before + 1
+        assert (swslice.LAUNCHES, swslice.LAUNCHES_RUNS) == (
+            before[0] + 1, before[1] + _runs(cam))
         ref = swslice.slice_composite_plain(*args, **dict(kw, term=term))
         tol = 5e-4 if term else 1e-4
         assert_out_close(out.cpu().numpy(), ref.cpu().numpy(), rgb=tol,
                          depth=5e-4 if not term else 5e-3)
+        if _runs(cam):
+            assert torch.equal(out, ref)
         # the counting variant: the same result, planes per block and
         # samples per pixel as the plain version counts them
         got, want = _counts(args), _counts(args)
-        stages = torch.zeros(2, dtype=torch.int32, device="cuda")
-        out_c = swslice.slice_composite(*args, **dict(kw, term=term, **got),
-                                        stage_counts=stages)
+        stages = _staged(args, kw, term, got, out, cam)
         swslice.slice_composite_plain(*args, **dict(kw, term=term, **want))
-        assert torch.equal(out_c, out)
         for k in got:
             assert torch.equal(got[k], want[k])
-        assert int(stages.sum()) >= int(got["block_planes"].sum())
+        # every composited plane was sampled by its block from one source
+        assert sum(stages) >= int(got["block_planes"].sum())
 
 
 @pytest.mark.cuda
@@ -173,13 +184,22 @@ def test_kernel_matches_plain_on_card(shading, fd, skip, dtype, cam,
     ("diffuse", True, "u16", "persp", 32, (2, 1), True),
     ("shadow", False, "u16", "ortho", 24, (0, 0), True),
     ("diffuse", False, "u16", "back", 48, (1, 2), False),
+    # principal x views: staged runs along the traversal
+    ("none", True, "u8", "side", 48, (0, 0), False),
+    ("diffuse", True, "f32", "side-back", 24, (0, 0), False),
+    ("diffuse", False, "u16", "side-ortho", 48, (2, 1), False),
+    ("shadow", True, "bf16", "side", 48, (0, 0), False),
+    ("shadow", False, "u8", "side-back", 48, (1, 0), True),
+    ("diffuse", True, "f32", "side", 32, (0, 0), True),
+    ("none", True, "u16", "side-back", 24, (0, 0), True),
+    ("shadow", True, "f32", "side-ortho", 32, (1, 1), False),
 ])
 def test_bf16_and_light_table_match_plain_on_card(shading, fd, dtype, cam, n,
                                                   lights, bf16):
     """The bf16 variant (an f32 grid of 32 rows read as bf16, of 24 rows
     as f32) and the light table, with termination on and off, against the
     plain version on the card: the same bits, the counting variant
-    included."""
+    included; principal x views on the run path, slab windows else."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     scene = _scene("smooth", dtype, cam, n=n, n_lights=lights[0],
@@ -187,18 +207,116 @@ def test_bf16_and_light_table_match_plain_on_card(shading, fd, dtype, cam, n,
     args, kw = capture(scene, shading, fd=fd, skip=True, bf16=bf16)
     assert kw["bf16"] == bf16
     for term in (False, True):
-        before = swslice.LAUNCHES_BF16
+        before = swslice.LAUNCHES_BF16, swslice.LAUNCHES_RUNS
         out = swslice.slice_composite(*args, **dict(kw, term=term))
         torch.cuda.synchronize()
-        assert swslice.LAUNCHES_BF16 == before + bf16
+        assert (swslice.LAUNCHES_BF16, swslice.LAUNCHES_RUNS) == (
+            before[0] + bf16, before[1] + _runs(cam))
         ref = swslice.slice_composite_plain(*args, **dict(kw, term=term))
         assert torch.equal(out, ref)
         got, want = _counts(args), _counts(args)
-        out_c = swslice.slice_composite(*args, **dict(kw, term=term, **got))
+        stages = _staged(args, kw, term, got, out, cam)
         swslice.slice_composite_plain(*args, **dict(kw, term=term, **want))
-        assert torch.equal(out_c, out)
         for k in got:
             assert torch.equal(got[k], want[k])
+        assert sum(stages) >= int(got["block_planes"].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shading", ["none", "diffuse"])
+def test_launch_path_follows_the_grid_layout(shading):
+    """The path the launcher takes by the grid's layout and the plan's
+    run footprint, and what its variant takes: a z view stages slab
+    windows in the shared memory and at the blocks per SM it always took;
+    a principal x view stages runs at three blocks per SM where nine runs
+    in ten fit the buffers, at two where half fit, and reads the grid
+    where fewer fit or a plane's copy would pass a 32-byte sector a fan
+    pixel (f32: 2048 voxels); the same x view one voxel off the storage's
+    alignment reads every tap from the grid, is counted so, and gives
+    the plain version's bits, as the run path does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    # the slab variants' min_blocks (mode 1 FD 4), which direct taps keep
+    slab_blocks = 4 if shading == "diffuse" else 5
+    for cam in ("persp", "side"):
+        scene = _scene("smooth", "f32", cam, n=48, device="cuda")
+        args, kw = capture(scene, shading, skip=True)
+        n_tab, n = args[1].shape[0], args[6]
+
+        def occupancy(grid_v, run_footprint=kw["run_footprint"]):
+            occ = swslice.kernel_occupancy(
+                grid_v, kw["mode"], True, n_tab, n,
+                axial_flip=kw["axial_flip"], run_footprint=run_footprint)
+            assert occ["threads"] == 128
+            return occ["path"], occ["blocks_per_sm"]
+
+        if cam == "persp":
+            assert kw["run_footprint"] == (0, 0)
+            # the slab variant's shared memory as it always was: tables,
+            # per-plane bits, windows and schedule, four 24 x 96 windows
+            words = (2 * (n // 32 + 2) + 3) // 4 * 4
+            smem = (16 * n_tab + 4 * words + (12 * n + 15) // 16 * 16
+                    + 4 * 24 * 96 * 4)
+            occ = swslice.kernel_occupancy(args[0], kw["mode"], True, n_tab,
+                                           n, axial_flip=kw["axial_flip"])
+            assert (occ["path"], occ["smem_bytes"], occ["blocks_per_sm"]) == (
+                "slabs", smem, slab_blocks)
+            continue
+        gv = args[0]
+        assert 0 < kw["run_footprint"][0] <= kw["run_footprint"][1] < 2000
+        for fp, want in (((0, 0), ("runs", 3)),
+                         (kw["run_footprint"], ("runs", 3)),
+                         ((500, 10 ** 6), ("runs", 2)),
+                         ((2100, 2100), ("direct", slab_blocks)),
+                         ((10 ** 6, 10 ** 6), ("direct", slab_blocks))):
+            assert occupancy(gv, fp) == want, fp
+        assert gv.stride(0) == 1
+        pad = torch.zeros((*gv.shape[1:], gv.shape[0] + 1), dtype=gv.dtype,
+                          device="cuda")
+        pad[..., 1:] = gv.permute(1, 2, 0)
+        off = pad[..., 1:].permute(2, 0, 1)
+        assert torch.equal(off, gv)
+        assert occupancy(off) == ("direct", slab_blocks)
+        runs = swslice.slice_composite(*args, **kw)
+        before = swslice.LAUNCHES_DIRECT, swslice.LAUNCHES_RUNS
+        out = swslice.slice_composite(off, *args[1:], **kw)
+        by_fp = swslice.slice_composite(
+            *args, **dict(kw, run_footprint=(10 ** 6, 10 ** 6)))
+        torch.cuda.synchronize()
+        assert (swslice.LAUNCHES_DIRECT, swslice.LAUNCHES_RUNS) == (
+            before[0] + 2, before[1])
+        ref = swslice.slice_composite_plain(*args, **kw)
+        for got in (out, runs, by_fp):
+            assert torch.equal(got, ref)
+        stages = torch.zeros(3, dtype=torch.int32, device="cuda")
+        swslice.slice_composite(off, *args[1:], **kw, **_counts(args),
+                                stage_counts=stages)
+        assert stages.tolist()[0] == stages.tolist()[2] == 0
+
+
+def _runs(cam):
+    """Whether the camera's view runs the kernel on staged runs."""
+    return cam.startswith("side")
+
+
+def _staged(args, kw, term, cnt, out, cam):
+    """The counting variant with `cnt` (and stage counts): it gives `out`'s
+    bits. Returns its planes sampled from slab windows, from the grid and
+    from staged runs: a principal x view (forward or walked backward as
+    the camera asks) samples from runs, and from the grid only a plane
+    whose runs lie past a skip while the buffers are taken (a few in a
+    hundred); any other view no plane from runs."""
+    stages = torch.zeros(3, dtype=torch.int32, device="cuda")
+    out_c = swslice.slice_composite(*args, **dict(kw, term=term, **cnt),
+                                    stage_counts=stages)
+    assert torch.equal(out_c, out)
+    slabs, direct, runs = stages.tolist()
+    if _runs(cam):
+        assert kw["axial_flip"] == (cam == "side-back")
+        assert slabs == 0 and runs > 0 and direct <= runs // 20
+    else:
+        assert runs == 0
+    return slabs, direct, runs
 
 
 def _counts(args):
@@ -443,6 +561,8 @@ def test_march_while_raises_under_grad_on_card():
     ("shadow", "bf16", "back", False, (0, 0)),
     ("none", "f32", "persp", True, (0, 0)),
     ("diffuse", "f32", "persp", True, (0, 0)),
+    ("diffuse", "u16", "side", False, (1, 0)),
+    ("shadow", "f32", "side-back", True, (0, 0)),
 ])
 def test_exit_map_matches_plain_on_card(shading, dtype, cam, bf16, lights):
     """A surface that cuts the volume: the kernel reads the exit map and
@@ -455,16 +575,16 @@ def test_exit_map_matches_plain_on_card(shading, dtype, cam, bf16, lights):
     args, kw = capture(scene, shading, skip=True, bf16=bf16)
     assert int((kw["exit_map"] < 1e38).sum()) > 100
     for term in (False, True):
-        before = swslice.LAUNCHES
+        before = swslice.LAUNCHES, swslice.LAUNCHES_RUNS
         out = swslice.slice_composite(*args, **dict(kw, term=term))
         torch.cuda.synchronize()
-        assert swslice.LAUNCHES == before + 1
+        assert (swslice.LAUNCHES, swslice.LAUNCHES_RUNS) == (
+            before[0] + 1, before[1] + _runs(cam))
         ref = swslice.slice_composite_plain(*args, **dict(kw, term=term))
         assert torch.equal(out, ref)
         got, want = _counts(args), _counts(args)
-        out_c = swslice.slice_composite(*args, **dict(kw, term=term, **got))
+        _staged(args, kw, term, got, out, cam)
         swslice.slice_composite_plain(*args, **dict(kw, term=term, **want))
-        assert torch.equal(out_c, out)
         for k in got:
             assert torch.equal(got[k], want[k])
 

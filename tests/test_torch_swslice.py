@@ -202,6 +202,113 @@ def test_stage_counts_need_the_kernel():
                                 stage_counts=torch.zeros(2, dtype=torch.int32))
 
 
+def _launch_args(cam, n=256, width=480, height=270):
+    """The slice kernel's arguments for a frame of a shape-only n^3 grid
+    (nothing rendered: the renderer is stopped at the launch)."""
+    from ovr_tpu_torch import api
+    from ovr_tpu_torch.core.scene import Camera, simple_scene
+    from tests.test_torch_cuda import CAMERAS
+    scene = simple_scene(torch.zeros(()).expand(n, n, n), value_range=(0, 1),
+                         device="cpu",
+                         camera=Camera.create(**CAMERAS[cam], device="cpu"))
+    cfg = api.RenderConfig(width=width, height=height,
+                           sampling_rate=float(n), shading="diffuse",
+                           method="shearwarp").resolved(scene)
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def spy(*args, **kw):
+        seen.update(args=args, kw=kw)
+        raise Stop
+
+    orig, swslice.slice_composite = swslice.slice_composite, spy
+    try:
+        api.render(scene, cfg)
+    except Stop:
+        pass
+    finally:
+        swslice.slice_composite = orig
+    return cfg.sw, seen["args"], seen["kw"]
+
+
+def _kernel_run_footprints(args, kw, fd):
+    """For each block and plane of a principal-x launch, the voxels (rows
+    x columns) that the kernel's buffer for the run of the plane's first
+    slab holds (its footprints on every plane that reads the run, joined
+    as csrc/swslice.cu joins them), over the planes where the block's
+    centre lies inside the grid's section."""
+    grid_v, _, sc, pg, qg, k0, n = args
+    na, nr, nc = grid_v.shape
+    rp = swslice.RUN_BYTES // grid_v.element_size()
+    sc = swslice._prepared_scalars(sc, grid_v.dtype, pg, qg).double()
+    S = sc.numpy()
+    pg, qg, k0 = pg.double().numpy(), qg.double().numpy(), k0.numpy()
+    hi, wi = qg.shape[0], pg.shape[0]
+    ortho = S[swslice.S_ORTHO] > 0.5
+    lam = (((np.arange(n) + S[swslice.S_OFF]) * S[swslice.S_DZ])
+           * S[swslice.S_DLAM] + S[swslice.S_LAM0])
+    by, bx = np.meshgrid(np.arange(-(-hi // 8)), np.arange(-(-wi // 32)),
+                         indexing="ij")
+    by, bx = by.ravel(), bx.ravel()
+    halo = 1 if fd else 0
+    r0, r1 = by * 8 - halo, np.minimum(by * 8 + 8, hi) - 1 + halo
+    q_a = S[swslice.S_QLO] + r0 * S[swslice.S_DQ]
+    q_b = S[swslice.S_QLO] + r1 * S[swslice.S_DQ]
+    c0 = np.maximum(bx * 32 - halo, 0)
+    c1 = np.minimum(np.minimum(bx * 32 + 32, wi) - 1 + halo, wi - 1)
+    p_a, p_b = pg[c0], pg[c1]
+
+    def texel(x, o, d_, lo, ext, n_):
+        pos = x[:, None] + d_ * lam if ortho else o + x[:, None] * lam
+        return (pos - lo) / ext * n_ - 0.5
+
+    rows = [texel(q, S[swslice.S_EW2], S[swslice.S_DW2], S[swslice.S_LO2],
+                  S[swslice.S_EX2], nr) for q in (q_a, q_b, (q_a + q_b) / 2)]
+    cols = [texel(p, S[swslice.S_EW1], S[swslice.S_DW1], S[swslice.S_LO1],
+                  S[swslice.S_EX1], nc) for p in (p_a, p_b, (p_a + p_b) / 2)]
+
+    def span(t, n_):
+        a, b = np.clip(t[0], 0, n_ - 1), np.clip(t[1], 0, n_ - 1)
+        return (np.floor(np.minimum(a, b)),
+                np.minimum(np.floor(np.maximum(a, b)) + 1, n_ - 1))
+
+    (r_lo, r_hi), (c_lo, c_hi) = span(rows, nr), span(cols, nc)
+    inside = ((rows[2] >= 0) & (rows[2] <= nr - 1) & (cols[2] >= 0)
+              & (cols[2] <= nc - 1))
+    n_runs = na // rp
+    ext = np.zeros((len(by), n_runs, 4))
+    ext[..., 0::2], ext[..., 1::2] = np.inf, -np.inf
+    blocks = np.arange(len(by))[:, None]
+    slab = [(na - 1 - (k0 + s)) // rp if kw["axial_flip"] else (k0 + s) // rp
+            for s in (0, 1)]
+    for run in slab:
+        for i, (v, f) in enumerate(((r_lo, np.minimum), (r_hi, np.maximum),
+                                    (c_lo, np.minimum), (c_hi, np.maximum))):
+            e = ext[..., i].copy()
+            f.at(e, (blocks, run[None, :]), v)
+            ext[..., i] = e
+    area = (ext[..., 1] - ext[..., 0] + 1) * (ext[..., 3] - ext[..., 2] + 1)
+    return area[blocks, slab[0][None, :]][inside]
+
+
+@pytest.mark.parametrize("cam", ["side", "side-back", "side-ortho"])
+def test_run_footprint_follows_the_kernel_geometry(cam):
+    """The plan's run footprint (`shearwarp._run_footprint`, from the
+    camera on the host) against the footprints the kernel's run staging
+    would hold for the same launch: its median and 90th percentile within
+    a quarter of theirs; a view along z has none."""
+    sw, args, kw = _launch_args(cam)
+    assert sw.axis == 0 and kw["run_footprint"] == sw.run_footprint
+    want = np.quantile(_kernel_run_footprints(args, kw, kw["fd"]),
+                       (0.5, 0.9))
+    got = np.array(sw.run_footprint)
+    assert np.all((got > 0.75 * want) & (got < 1.25 * want)), (got, want)
+    assert _launch_args("persp", n=32, width=64, height=48)[0].run_footprint \
+        == (0, 0)
+
+
 def test_requires_grad_gives_a_gradient():
     """The call that raised before the backward existed now returns a
     finite grid gradient, through the plain version (no launch)."""

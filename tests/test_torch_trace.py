@@ -43,7 +43,8 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 NEW = {"plan_ms", "value_ranges_ms", "majorants_ms", "frame_setup_ms",
        "warp_ms", "issue_ms", "readback_mb", "readback_gb_per_s",
-       "setter_stall_ms", "readback_pinned_pct", "setup_graph_pct"}
+       "setter_stall_ms", "readback_pinned_pct", "setup_graph_pct",
+       "k1_direct_pct"}
 HOST_READERS = {"plan_ms", "issue_ms", "readback_mb", "readback_pinned_pct",
                 "setup_graph_pct"}
 TINY = {"dims_xyz": [20, 18, 22],
@@ -534,6 +535,9 @@ def test_card_k1_once_a_frame_in_its_span(card_runs):
     k1 = [n for (s, e, name, kind), n in zip(p.ops, p.op_span)
           if kind == "kernel" and program_spans.K1_NAME in name]
     assert k1 == ["render.k1"] * run_.trace.n_frames
+    # the tiny grid's principal x views (20 voxels of u16 a column, five
+    # 8-byte runs) stage runs, its other views slab windows
+    assert res["metrics"]["k1_direct_pct"]["value"] == 0.0
     assert res["correct"]
 
 
