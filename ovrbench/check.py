@@ -1,28 +1,48 @@
-"""The comparison that decides `correct`.
+"""The comparison that decides `correct`: what every pipeline's check
+shares.
 
-Frames of the measured window are drawn from the seed (a reservoir over
-all of them, so every frame is equally likely to be held). After the
-window, each held frame's rgba, as `Renderer.mapframe` returned it, is
-compared with the reference frame (`reference.shearwarp`) made from the
-same grid, TF, camera and light, on the screen pixels that the
-reference's fan tiles cover: 16 drawn over the whole fan (one in each
-cell of a 4 x 4 split) and 48 among the tiles whose rays meet the box of
-the voxels that are not 0 (a volume is often a body in air, a small part
-of the frame). The numbers compared, each against its limit in
-`limits/<cell>.json`:
+Frames of the measured window (or of the traced plan) are drawn from
+the seed: a reservoir over all of them (`Reservoir`), so every frame is
+equally likely to be held. Each held frame is a `Held` record: the eye
+and the TF alpha it was rendered with, its rgba as `Renderer.mapframe`
+returned it, its index `k` in the window or the traced plan, and
+`n_accumulated`, the frames the Renderer rendered since the last camera
+or TF call, this one included (1 unless the mix accumulates and holds a
+view: `frames.py`), counted by the harness from the setter calls it
+made.
+
+After the window the configuration's check module (`checks/<check>.py`,
+named by the configuration's key `check`, `shearwarp` where it has
+none) holds the records against its plain reference:
+`compare(held, ctx)` returns {"rgba_err", "checked_px", "errs" (one a
+held frame)}, and `verdict` holds those numbers against the cell's
+limits (`limits/<cell>.json`):
 - `rgba_err`: the largest absolute difference of any rgba channel over
-  the covered pixels of every held frame (at most its limit);
-- `checked_px`: the fewest covered pixels with content (the reference's
+  the checked pixels of every held frame (at most its limit);
+- `checked_px`: the fewest checked pixels with content (the reference's
   alpha above 0) in a held frame (at least its limit), so that a check
   never passes by looking at empty space.
+`content_box` is for a check module that draws its pixels where the
+volume has content.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from ovrbench.reference import lightgrid, shearwarp
+
+@dataclasses.dataclass(frozen=True)
+class Held:
+    """A frame held for the comparison."""
+
+    eye: tuple
+    alpha: np.ndarray
+    rgba: np.ndarray
+    k: int
+    n_accumulated: int
 
 
 class Reservoir:
@@ -40,18 +60,6 @@ class Reservoir:
         j = int(self.rng.integers(0, i + 1))
         if j < self.k:
             self.items[j] = item
-
-
-def reference_inputs(grid, config, render, shading, color, alpha,
-                     base_rate, eye, center):
-    return shearwarp.Inputs(
-        grid=grid, world_lo=tuple(config["world_lo"]),
-        world_hi=tuple(config["world_hi"]), color=color, alpha=alpha,
-        value_range=tuple(config["value_range"]), eye=tuple(eye),
-        at=tuple(center), up=tuple(render["up"]), fovy=render["fovy"],
-        light_dir=tuple(render["light_direction"]), width=render["width"],
-        height=render["height"], sampling_rate=render["sampling_rate"],
-        base_rate=base_rate, shading=shading)
 
 
 def content_box(grid, world_lo, world_hi) -> tuple:
@@ -72,39 +80,6 @@ def content_box(grid, world_lo, world_hi) -> tuple:
         out_lo[a] = lo[a] + max(i0, 0) * cell
         out_hi[a] = lo[a] + min(i1, dims[a]) * cell
     return tuple(out_lo), tuple(out_hi)
-
-
-def compare(held, grid, config, render, shading, color, base_rate, center,
-            seed: int) -> dict:
-    """Hold each (eye, alpha, rgba) of `held` against the reference.
-    Returns {"rgba_err", "checked_px", "errs" (per frame)}."""
-    rng = np.random.default_rng([seed, 4])
-    box = content_box(grid, config["world_lo"], config["world_hi"])
-    lattices = {}
-    errs, counts = [], []
-    for eye, alpha, rgba in held:
-        lat = None
-        if shading == "shadow":
-            key = np.asarray(alpha, np.float32).tobytes()
-            if key not in lattices:
-                lattices[key] = lightgrid.build(
-                    grid, config["world_lo"], config["world_hi"], alpha,
-                    config["value_range"], base_rate,
-                    render["light_direction"])
-            lat = lattices[key]
-        inp = reference_inputs(grid, config, render, shading, color, alpha,
-                               base_rate, eye, center)
-        frame = shearwarp.Frame(inp, lattice=lat)
-        with torch.no_grad():
-            ref, covered = frame.render(frame.tile_origins(rng, box))
-        prog = torch.as_tensor(np.asarray(rgba), device=grid.device)
-        diff = torch.abs(prog.to(torch.float32) - ref)[covered]
-        # a NaN or an infinity is as far off as can be
-        diff = torch.nan_to_num(diff, nan=float("inf"))
-        errs.append(float(diff.max()) if diff.numel() else float("inf"))
-        counts.append(int((covered & (ref[..., 3] > 0)).sum()))
-    return {"rgba_err": max(errs) if errs else float("inf"),
-            "checked_px": min(counts) if counts else 0, "errs": errs}
 
 
 def verdict(numbers: dict, limits: dict) -> tuple:

@@ -19,7 +19,16 @@ A mix file holds:
   with a fixed camera, one TF step per entry);
 - `trace_views`, `trace_repeats`: the traced run's fixed frames: that many
   views spread evenly over the orbit (or the ramp), cycled that often;
-- `check_frames`: frames of the window held against the reference.
+- `check_frames`: frames of the window held against the reference;
+- `frames_per_view` (orbit only; default 1): the eye moves by
+  `deg_per_frame` every that many frames, and the frames between make
+  no camera call, so that a Renderer accumulating frames keeps
+  accumulating; the traced run holds each of its views for that many
+  frames, the first of them with the camera call;
+- `accumulate` (default false): the run calls
+  `Renderer.set_frame_accumulation(True)` once, after the Renderer is
+  made and before set-up, so that each frame shows the mean of the
+  frames rendered since the last camera or TF call.
 
 Every seed gets the same views and TF steps in the same order, so that
 the work of a window does not depend on the seed: the seed changes the
@@ -53,10 +62,16 @@ class Traffic:
         self.center = tuple(float(c) for c in (lo + hi) / 2)
         self.distance = float(config["render"]["eye_distance"])
         cam = mix["camera"]
+        self.per_view = int(mix.get("frames_per_view", 1))
         if cam["kind"] == "orbit":
             self.step = float(cam["deg_per_frame"])
         elif cam["kind"] != "fixed":
             raise ValueError(f"unknown camera kind {cam['kind']!r}")
+        if self.per_view < 1 or (self.per_view > 1
+                                 and cam["kind"] != "orbit"):
+            raise ValueError("frames_per_view is a whole number >= 1, "
+                             "above 1 only on an orbit")
+        self.accumulate = bool(mix.get("accumulate", False))
         edit = mix.get("tf_edit")
         self.period = 0
         if edit:
@@ -98,9 +113,14 @@ class Traffic:
 
     # ---- frames ----
     def spec(self, k: int, degrees: Optional[float] = None) -> FrameSpec:
+        """Frame k of the window; `degrees` places the eye there (set-up
+        and the traced views) instead of on the window's orbit."""
         eye = alpha = None
         if self.mix["camera"]["kind"] == "orbit":
-            eye = self.eye_at(k * self.step if degrees is None else degrees)
+            if degrees is not None:
+                eye = self.eye_at(degrees)
+            elif k % self.per_view == 0:
+                eye = self.eye_at(k // self.per_view * self.step)
         if self.period:
             alpha = self.ramp_alpha(k)
         return FrameSpec(eye, alpha)
@@ -119,7 +139,8 @@ class Traffic:
 
     def traced(self) -> list:
         """The traced run's frames and, for each, the index of its view
-        among the distinct ones."""
+        among the distinct ones: each view held for `frames_per_view`
+        frames, the first with the camera call and the rest with none."""
         n, reps = int(self.mix["trace_views"]), int(self.mix["trace_repeats"])
         views = []
         for i in range(n):
@@ -127,4 +148,6 @@ class Traffic:
                 views.append(self.spec(0, 360.0 * i / n))
             else:
                 views.append(self.spec(i * max(self.period, 1) // n))
-        return [(views[i], i) for _ in range(reps) for i in range(n)]
+        held = FrameSpec(None, None)
+        return [(views[i] if j == 0 else held, i) for _ in range(reps)
+                for i in range(n) for j in range(self.per_view)]

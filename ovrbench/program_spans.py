@@ -12,10 +12,21 @@ such module, or records nothing, gives None, and so does every reader.
   its profiler ranges (`run.trace.ranges`) are the same calls on both
   clocks: the median of their start differences maps the program's host
   times onto the profiler's clock (its spread is printed on stderr).
-- Device. Each `render.k1` span brackets the frame's one slice-kernel
-  launch. The events of a frame are placed by their elapsed time from
-  that span's end event, anchored on the end of the frame's K1 kernel in
-  the trace; the counts of K1 kernels and `render.k1` spans must match.
+- Device. Each frame's CUDA events are placed by their elapsed time
+  from one of the frame's spans, anchored on that span's one device
+  operation in the trace: the slice-kernel launch of its `render.k1`
+  span (the shear-warp pipeline; the counts of K1 kernels and
+  `render.k1` spans must match), or its `mapframe.rgba` readback, the
+  first device-to-host copy that starts after that span's host start
+  (every pipeline has one). The anchor puts the span's end event on the
+  operation's end; the start event, placed by the same anchor, has to
+  fall on the operation's start within `TOLERANCE_NS`. A host pause
+  between the start event and the launch, or between the launch and the
+  end event past the operation's end, makes the two disagree. A frame
+  takes its K1 anchor where that holds, else its readback where that
+  holds, else it is left out of the device readings (they are taken a
+  frame over the frames placed); the counts are printed on stderr in
+  the anchor line.
 - Operations. Each device operation of `run.trace.ops` is put down to the
   innermost span whose device interval holds its middle.
 - Idle. Each idle stretch of `run.trace.busy_intervals()` is split at the
@@ -35,8 +46,12 @@ from ovrbench.trace import K1_NAME
 
 MODULE = "ovr_tpu_torch.utils.trace"
 K1_SPAN = "render.k1"
+RGBA_SPAN = "mapframe.rgba"
 READBACK = "api.READBACK_BYTES"
 NO_SPAN = "(no span)"
+# the most by which a frame's anchored start event may miss its
+# operation's start (see PERF.md section 3 for the gaps it was set from)
+TOLERANCE_NS = 1_500_000
 
 
 def log(*a) -> None:
@@ -115,6 +130,7 @@ class Placed:
             (s.name, s.t0_ns + off, s.t1_ns + off, s) for s in spans
             if tr.t0 <= s.t0_ns + off and s.t1_ns + off <= tr.t1]
         self.op_span = self.idle = None
+        self.n_dev = self.n
         if off is None:
             log("program spans: no harness span to place them by")
             return
@@ -123,8 +139,13 @@ class Placed:
             f"{len(tr.ranges)} harness spans")
         if not tr.ops:
             return
-        dev = self.device_times([h[3] for h in self.host], tr.ops)
+        mine = [h[3] for h in self.host]
+        dev = self.device_times(mine, tr.ops,
+                                {h[3].id: h[1] for h in self.host})
         if dev is not None:
+            placed = {s.frame for s in mine if s.id in dev}
+            self.n_dev = self.n - len({s.frame for s in mine
+                                       if s.start is not None} - placed)
             by_id = {h[3].id: h for h in self.host}
             lv = Levels([(a, b, by_id[i][0]) for i, (a, b) in dev.items()])
             self.op_span = [lv.innermost((s + e) / 2)
@@ -145,37 +166,70 @@ class Placed:
             f"{(tr.window_s - tr.busy_s) * 1e3 / self.n:.3f} idle")
 
     @staticmethod
-    def device_times(spans, ops):
-        """span id -> (a, b) on the profiler's clock, or None where the
-        K1 kernels and the `render.k1` spans do not pair up."""
+    def device_times(spans, ops, host_t0=None):
+        """span id -> (a, b) on the profiler's clock for the spans of each
+        frame whose anchor holds, or None where the K1 kernels and the
+        `render.k1` spans do not pair up or no frame is placed.
+        `host_t0`: span id -> host start on the profiler's clock, which
+        finds a frame's readback copy (frames without K1 are left out
+        without it)."""
         k1_ops = [o for o in ops if o[3] == "kernel" and K1_NAME in o[2]]
         k1_spans = sorted((s for s in spans if s.name == K1_SPAN
                            and s.end is not None), key=lambda s: s.t0_ns)
-        if not k1_spans or len(k1_spans) != len(k1_ops):
+        if len(k1_spans) != len(k1_ops):
             log(f"program spans: {len(k1_spans)} {K1_SPAN} spans against "
                 f"{len(k1_ops)} K1 kernels; device times not placed")
             return None
         timed = sorted((s for s in spans if s.start is not None),
                        key=lambda s: s.t0_ns)
+        if not timed:
+            return None
         ref = timed[0].start
 
         def rel(ev):
             return ref.elapsed_time(ev) * 1e6  # ns after ref
 
-        anchor = {s.frame: op[1] - rel(s.end)
-                  for s, op in zip(k1_spans, k1_ops)}
-        frames = sorted(anchor)
-        miss = max(abs(op[0] - (rel(s.start) + anchor[s.frame]))
-                   for s, op in zip(k1_spans, k1_ops))
-        out = {}
-        for s in timed:
-            i = min(bisect.bisect_left(frames, s.frame), len(frames) - 1)
-            off = anchor[frames[i]]
-            out[s.id] = (rel(s.start) + off, rel(s.end) + off)
-        log(f"program spans: device events anchored on {len(k1_ops)} K1 "
-            f"kernels; largest gap from a {K1_SPAN} start to its kernel's "
-            f"start {miss / 1e3:.1f} us")
-        return out
+        def offsets(s, op):
+            """The anchor by the end event, and the start event's miss."""
+            off = op[1] - rel(s.end)
+            return off, op[0] - rel(s.start) - off
+
+        k1 = {s.frame: offsets(s, op) for s, op in zip(k1_spans, k1_ops)}
+        copies = [o for o in ops if o[3] == "copy" and "DtoH" in o[2]]
+        starts = [o[0] for o in copies]
+        rb = {}
+        for s in spans:
+            if (s.name == RGBA_SPAN and s.end is not None and host_t0
+                    and s.id in host_t0):
+                i = bisect.bisect_left(starts, host_t0[s.id])
+                if i < len(copies):
+                    rb[s.frame] = offsets(s, copies[i])
+        # K1 where it holds, else the readback where that holds
+        kept, refused = {}, []
+        for f in set(k1) | set(rb):
+            for by, cand in (("K1", k1.get(f)), ("readback", rb.get(f))):
+                if cand is not None and abs(cand[1]) <= TOLERANCE_NS:
+                    kept[f] = (by, *cand)
+                    break
+                if by == "K1" and cand is not None:
+                    refused.append(abs(cand[1]) / 1e3)
+        out = {s.id: (rel(s.start) + kept[s.frame][1],
+                      rel(s.end) + kept[s.frame][1])
+               for s in timed if s.frame in kept}
+        frames = {s.frame for s in timed}
+        on_k1 = sum(by == "K1" for by, _, _ in kept.values())
+        worst = max((abs(m) for _, _, m in kept.values()), default=0.0)
+        both = [abs(k1[f][0] - rb[f][0]) / 1e3 for f in k1 if f in rb]
+        log(f"program spans: device events anchored on {on_k1} K1 kernels "
+            f"and {len(kept) - on_k1} readback copies; "
+            f"{len(frames) - len(kept)} of {len(frames)} frames left out; "
+            f"{len(refused)} K1 anchors refused, their start events off by "
+            f"more than {TOLERANCE_NS / 1e3:.0f} us "
+            f"({[round(m, 1) for m in sorted(refused)[-5:]]} us at most); "
+            f"largest miss of an anchor kept {worst / 1e3:.1f} us"
+            + (f"; readback anchors within {max(both):.1f} us of the K1 "
+               f"anchors over {len(both)} frames" if both else ""))
+        return out or None
 
     # ---- readings, per traced frame ----
     def host_ms(self, name: str) -> float:
@@ -193,7 +247,7 @@ class Placed:
             return None
         return sum(e - s for (s, e, _, kind), n in
                    zip(self.ops, self.op_span)
-                   if n in names and kind in kinds) / 1e6 / self.n
+                   if n in names and kind in kinds) / 1e6 / self.n_dev
 
     def idle_ms(self, names):
         if self.idle is None:

@@ -11,15 +11,41 @@ configuration's data file names its seeded volume generator
 `frames.py`), each metric is read by `metrics/<metric>.py`, and the
 limits of the comparison are in `limits/<cell>.json`.
 
+A configuration names its pipeline. Its "render" block holds the
+harness's own keys (`fovy`, `eye_distance`, `up`, `light_direction`),
+and every other key goes to the field of that name of
+`api.RenderConfig` (`width`, `height`, `spp`, `sampling_rate`,
+`method`, `use_macrocells`, and as a pipeline needs them
+`path_tracing`, `max_scatters`, `ray_chunk`, `pt_dense`, ...); a key
+that names no field stops the run, so a misspelt key can never fall
+back to shear-warp. `shading` and `base_rate` are the mix's. The
+optional key `check` names the comparison and the roofline's count,
+`checks/<check>.py` (`shearwarp` where the key is absent), loaded from
+the checkout by path as `content/` modules are. A check module has
+  compare(held, ctx) -> {"rgba_err", "checked_px", "errs"}
+over the held frames (`check.Held`: eye, alpha, rgba, k, n_accumulated)
+and, optionally,
+  bound(ctx, views) -> {view: (seconds, "bytes" | "operations")}
+the slice kernel's least time for each traced view (`views`: the
+record of each view's first traced frame, rgba None), which
+`k1_roofline_pct` reads; a module without `bound` leaves that metric
+out. `ctx` holds the run's inputs: `grid` (on the run's device),
+`config` (with the test's overrides), `render` (its block), `mix`,
+`shading`, `color`, `base_rate`, `center`, `value_range`, `seed`,
+`device` and `render_fields` (the `RenderConfig` keywords the run built
+the Renderer with).
+
 A run: the volume made on the card from the seed; the program's
-`api.Renderer` over it; the cell's views rendered once (set-up, which
-builds the slice kernel the first time in a checkout); then a closed loop
-with one user, each frame as the viewer does it: the mix's setter calls,
-`commit()`, `render()` and `mapframe()["rgba"]`, for `--seconds`
-(frames begun before the deadline finish). With `--trace 1` a fixed set
-of the mix's frames runs instead, under torch.profiler, with every span
-synchronized. After the window the program's state is freed and frames
-drawn from the seed are held against the plain reference (`check.py`).
+`api.Renderer` over it (with frame accumulation switched on first where
+the mix says `accumulate`); the cell's views rendered once (set-up,
+which builds the slice kernel the first time in a checkout); then a
+closed loop with one user, each frame as the viewer does it: the mix's
+setter calls, `commit()`, `render()` and `mapframe()["rgba"]`, for
+`--seconds` (frames begun before the deadline finish). With `--trace 1`
+a fixed set of the mix's frames runs instead, under torch.profiler,
+with every span synchronized. After the window the program's state is
+freed and frames drawn from the seed are held against the plain
+reference by the check module (`check.py`).
 
 The last line of stdout is one JSON object: correct, attempted (frames),
 failed (held frames beyond the limit), metrics, device and, traced, the
@@ -123,21 +149,52 @@ class Cell:
 
 # ---- one run ---------------------------------------------------------------
 
+HARNESS_RENDER_KEYS = ("fovy", "eye_distance", "up", "light_direction")
+MIX_RENDER_FIELDS = ("shading", "base_rate")
+
+
+def render_fields(render: dict, shading: str, base_rate: float,
+                  render_options: dict | None = None) -> dict:
+    """The `api.RenderConfig` keywords of a run: every key of the
+    configuration's "render" block but the harness's own
+    (`HARNESS_RENDER_KEYS`), the mix's shading and opacity-correction
+    base, then `render_options` over them. A render key that names no
+    field of `RenderConfig`, or one of the mix's, stops the run."""
+    import dataclasses
+
+    from ovr_tpu_torch import api
+
+    names = {f.name for f in dataclasses.fields(api.RenderConfig)}
+    out = {}
+    for k, v in render.items():
+        if k in HARNESS_RENDER_KEYS:
+            continue
+        if k in MIX_RENDER_FIELDS:
+            raise SystemExit(f"render key {k!r}: the traffic mix sets it")
+        if k not in names:
+            raise SystemExit(f"render key {k!r} is no field of "
+                             "api.RenderConfig")
+        out[k] = v
+    out.update(base_rate=base_rate, shading=shading)
+    out.update(render_options or {})
+    return out
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
              overrides: dict | None = None, render_options: dict | None = None,
              t_start: float | None = None) -> tuple:
     """Run the cell once on `device`. `overrides` replaces keys of the
     configuration and of its "render" settings (small sizes for tests on
-    the CPU); `render_options` are extra `RenderConfig` fields (a lower
-    precision for the control). Returns (result dict, stderr lines of
-    the numbers compared)."""
+    the CPU); `render_options` are `RenderConfig` fields over the
+    configuration's (a lower precision for the control). Returns (result
+    dict, stderr lines of the numbers compared)."""
     import torch
 
     from ovr_tpu_torch import api
     from ovr_tpu_torch.core.scene import (Camera, Light, Scene,
                                           StructuredVolume, TransferFunction)
 
-    from ovrbench import check, frames, trace, work
+    from ovrbench import check, frames, trace
 
     t_start = process_start() if t_start is None else t_start
     config = json.loads(json.dumps(cell.config))
@@ -150,6 +207,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     mix = cell.mix
     shading = mix["shading"]
     traffic = frames.Traffic(config, mix)
+    base_rate = traffic.base_rate()
+    fields = render_fields(render, shading, base_rate, render_options)
+    checker = load_module(cell.root, f"ovrbench/checks/"
+                                     f"{config.get('check', 'shearwarp')}.py")
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     content = load_module(cell.root, f"ovrbench/content/"
@@ -167,7 +228,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         peak_before = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
     color, base_alpha = traffic.color(), traffic.base_alpha()
-    base_rate = traffic.base_rate()
     center = traffic.center
     vr = tuple(config["value_range"])
     vol = StructuredVolume.create(grid, world_lo=config["world_lo"],
@@ -179,33 +239,34 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         camera=Camera.create(from_=traffic.first_eye(), at=center,
                              up=render["up"], fovy=render["fovy"],
                              device=dev))
-    rcfg = api.RenderConfig(
-        width=render["width"], height=render["height"], spp=render["spp"],
-        sampling_rate=render["sampling_rate"], base_rate=base_rate,
-        method=render["method"], shading=shading,
-        use_macrocells=render["use_macrocells"], **(render_options or {}))
-    renderer = api.Renderer(scene, rcfg)
+    renderer = api.Renderer(scene, api.RenderConfig(**fields))
+    if traffic.accumulate:
+        renderer.set_frame_accumulation(True)
     spans = trace.Spans(traced, dev)
-    state = {"alpha": base_alpha}
+    # the scene as the Renderer holds it; "n" counts the frames rendered
+    # since the last camera or TF call (the frames a mean accumulates)
+    state = {"eye": traffic.first_eye(), "alpha": base_alpha, "n": 0}
 
     def frame(spec):
         with spans.span("setters"):
             if spec.eye is not None:
                 renderer.set_camera(from_=spec.eye, at=center,
                                     up=render["up"])
+                state["eye"], state["n"] = spec.eye, 0
             if spec.alpha is not None:
                 renderer.set_transfer_function(color, spec.alpha, vr)
-                state["alpha"] = spec.alpha
+                state["alpha"], state["n"] = spec.alpha, 0
         with spans.span("commit"):
             renderer.commit()
         with spans.span("render"):
             renderer.render()
+        state["n"] += 1
         with spans.span("mapframe"):
             rgba = renderer.mapframe()["rgba"]
         return rgba
 
-    def eye_of(spec):
-        return spec.eye if spec.eye is not None else traffic.first_eye()
+    def record(k, rgba):
+        return check.Held(state["eye"], state["alpha"], rgba, k, state["n"])
 
     for spec in traffic.warmup():
         frame(spec)
@@ -224,7 +285,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
                 break
             rgba = frame(spec)
             times.append((t0, time.perf_counter()))
-            held.offer(k, (eye_of(spec), state["alpha"], rgba))
+            held.offer(k, record(k, rgba))
     else:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -238,8 +299,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
                 with spans.span("frame"):
                     rgba = frame(spec)
                 times.append((t0, time.perf_counter()))
-                held.offer(k, (eye_of(spec), state["alpha"], rgba))
-                views.setdefault(view, (eye_of(spec), state["alpha"]))
+                held.offer(k, record(k, rgba))
+                views.setdefault(view, record(k, None))
         tdata = trace.TraceData(prof, len(plan))
         counts = (plan, views)
     peak = torch.cuda.max_memory_allocated() if cuda else None
@@ -260,21 +321,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         width=render["width"], height=render["height"], spp=render["spp"],
         frame_times=times, spans=spans, setup_s=setup_s, peak_bytes=peak,
         trace=tdata, bound_s=None, bound_by=None)
+    ctx = types.SimpleNamespace(
+        grid=grid, config=config, render=render, mix=mix, shading=shading,
+        color=color, base_rate=base_rate, center=center, value_range=vr,
+        seed=seed, device=dev, render_fields=fields)
     t_ref = time.perf_counter()
-    if traced and cuda:
+    if traced and cuda and hasattr(checker, "bound"):
         plan, views = counts
-        lat_shape = None
-        if shading == "shadow":
-            from ovrbench.reference import lightgrid
-            lat_shape = lightgrid.resolution(tuple(grid.shape))
-        per_view = {}
-        for v, (eye, alpha) in views.items():
-            w = work.count_frame(
-                grid, config["world_lo"], config["world_hi"], alpha, vr,
-                base_rate, eye, center, render["up"], render["fovy"],
-                render["width"], render["height"], render["sampling_rate"],
-                shading, lattice_shape=lat_shape)
-            per_view[v] = work.bound_s(w["samples"], w["bytes"], shading)
+        per_view = checker.bound(ctx, views)
         run.bound_s = sum(per_view[v][0] for _, v in plan)
         binds = [per_view[v][1] for _, v in plan]
         run.bound_by = max(set(binds), key=binds.count)
@@ -284,8 +338,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         t_ref = time.perf_counter()
 
     with torch.no_grad():
-        numbers = check.compare(held.items, grid, config, render, shading,
-                                color, base_rate, center, seed)
+        numbers = checker.compare(held.items, ctx)
     correct, rows = check.verdict(numbers, cell.limits)
     log(f"reference: {len(held.items)} held frames in "
         f"{time.perf_counter() - t_ref:.1f} s")

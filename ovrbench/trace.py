@@ -118,9 +118,6 @@ class TraceData:
             tot += e - s
         return tot * 1e-9
 
-    def k1_count(self) -> int:
-        return sum(1 for o in self.ops if o[3] == "kernel" and K1_NAME in o[2])
-
     def top_ops(self, n: int = 10) -> list:
         by = {}
         for s, e, name, _ in self.ops:
